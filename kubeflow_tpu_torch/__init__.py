@@ -9,9 +9,12 @@ kernel on a ported path is a CUDA C++ kernel for ``sm_90a`` under
 wrapper runs its plain PyTorch twin on CPU tensors. Entry points run on
 the card unless the caller passes ``device="cpu"``.
 
-This slice serves the LM: ops (flash prefill, GEMV, fused QKV+RoPE,
-flash-decode), the model, KV-cache decode, the continuous batcher and
-the streaming engine.
+The first slice serves the LM: ops (flash prefill, GEMV, fused
+QKV+RoPE, flash-decode), the model, KV-cache decode, the continuous
+batcher and the streaming engine. The second trains it: the flash
+forward with its logsumexp and the two backward kernels (dq, dk/dv)
+behind a differentiable ``flash_attention``, the LM loss, AdamW with a
+bf16 first moment, the train state and step.
 """
 
 from kubeflow_tpu_torch._device import kernels_available, resolve_device

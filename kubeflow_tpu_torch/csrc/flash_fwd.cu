@@ -8,7 +8,10 @@
 // sequence, self-attention). Scores, m, l and the accumulator are f32;
 // p is rounded to bf16 before the PV product (the reference's
 // `p.astype(v.dtype)`). A row no live tile touches emits 0, not NaN.
-// The per-row logsumexp the backward needs comes with the training port.
+// With a non-null `lse` the kernel also writes each row's logsumexp
+// m + log(l_safe), (B, H, Sq) f32, which the backward (flash_bwd.cu)
+// recomputes p from; l_safe is l, or 1 for a row no live tile touched,
+// whose lse is then -1e30. Inference passes null and stores nothing.
 //
 // Bound on the H100: operations. At the flagship's prefill (S=1024,
 // D=128) a tile does ~D multiply-adds per byte it loads, far above the
@@ -43,8 +46,9 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ seg,
-                 bf16* __restrict__ out, int H, int Hkv, int Sq, int Sk,
-                 int causal, int window, float scale) {
+                 bf16* __restrict__ out, float* __restrict__ lse, int H,
+                 int Hkv, int Sq, int Sk, int causal, int window,
+                 float scale) {
   constexpr int QS = D + 1;    // f32 row stride (padded: no bank conflicts)
   constexpr int KS = D + 2;    // bf16 row stride (padded)
   constexpr int PS = kBK + 1;  // f32 row stride of the p tile
@@ -174,13 +178,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* orow = out + ((size_t)bh * Sq + row) * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) orow[tc + 8 * j] = __float2bfloat16(acc[j] / l_safe);
+    if (lse != nullptr && tc == 0) lse[(size_t)bh * Sq + row] = m + logf(l_safe);
   }
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* seg,
-           void* out, int B, int H, int Hkv, int Sq, int Sk, int causal,
-           int window, float scale, cudaStream_t stream) {
+           void* out, void* lse, int B, int H, int Hkv, int Sq, int Sk,
+           int causal, int window, float scale, cudaStream_t stream) {
   const size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -190,33 +195,35 @@ int launch(const void* q, const void* k, const void* v, const void* seg,
   flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(seg),
-      static_cast<bf16*>(out), H, Hkv, Sq, Sk, causal, window, scale);
+      static_cast<bf16*>(out), static_cast<float*>(lse), H, Hkv, Sq, Sk,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q/out (B, H, Sq, D) bf16; k/v (B, Hkv, Sk, D) bf16; seg (B, Sq) int32
-// or null (requires Sq == Sk). window <= 0 means none. D in
-// {16, 32, 64, 128, 256}. Returns -1 on a head dim the kernel was not
-// built for.
+// or null (requires Sq == Sk); lse (B, H, Sq) f32 or null. window <= 0
+// means none. D in {16, 32, 64, 128, 256}. Returns -1 on a head dim the
+// kernel was not built for.
 KFT_EXPORT int kft_flash_fwd(const void* q, const void* k, const void* v,
-                             const void* seg, void* out, int B, int H,
-                             int Hkv, int Sq, int Sk, int D, int causal,
-                             int window, float scale, void* stream) {
+                             const void* seg, void* out, void* lse, int B,
+                             int H, int Hkv, int Sq, int Sk, int D,
+                             int causal, int window, float scale,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define KFT_FWD(DIM)                                                       \
+  case DIM:                                                                \
+    return launch<DIM>(q, k, v, seg, out, lse, B, H, Hkv, Sq, Sk, causal, \
+                       window, scale, s);
   switch (D) {
-    case 16:
-      return launch<16>(q, k, v, seg, out, B, H, Hkv, Sq, Sk, causal, window, scale, s);
-    case 32:
-      return launch<32>(q, k, v, seg, out, B, H, Hkv, Sq, Sk, causal, window, scale, s);
-    case 64:
-      return launch<64>(q, k, v, seg, out, B, H, Hkv, Sq, Sk, causal, window, scale, s);
-    case 128:
-      return launch<128>(q, k, v, seg, out, B, H, Hkv, Sq, Sk, causal, window, scale, s);
-    case 256:
-      return launch<256>(q, k, v, seg, out, B, H, Hkv, Sq, Sk, causal, window, scale, s);
+    KFT_FWD(16)
+    KFT_FWD(32)
+    KFT_FWD(64)
+    KFT_FWD(128)
+    KFT_FWD(256)
     default:
       return -1;
   }
+#undef KFT_FWD
 }

@@ -3,25 +3,36 @@
 The reference's params pytree, as nested dicts of numpy arrays (the
 caller does ``jax.tree.map(np.asarray, params)``; this module never sees
 a JAX object), becomes the same nested dict of torch tensors on the
-port's device. Names and layouts stay as they are: a Dense ``kernel``
-stays (in, out), which is what the GEMV and the fused QKV kernel
-contract, and the embedding stays (vocab, dim), which is what the tied
-head reads with ``transpose_w``. Matmul weights are cast to the compute
+port's device; :func:`train_state_from_jax` carries a whole LM train
+state (step, f32 params, AdamW moments) across the same way. Names and
+layouts stay as they are: a Dense ``kernel`` stays (in, out), which is
+what the GEMV and the fused QKV kernel contract, and the embedding
+stays (vocab, dim), which is what the tied head reads with
+``transpose_w``. Matmul weights are cast to the compute
 dtype once here (the reference casts on every call, to the same
 values); norm scales stay f32.
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Any
 
 import numpy as np
 import torch
 
 from kubeflow_tpu_torch._device import resolve_device
-from kubeflow_tpu_torch.models.transformer import LMConfig
+from kubeflow_tpu_torch.models.optim import AdamW, AdamWState
+from kubeflow_tpu_torch.models.train import TrainState
+from kubeflow_tpu_torch.models.transformer import (
+    LMConfig,
+    build_lm,
+    trainable,
+)
 
 _F32_LEAVES = ("RMSNorm_0", "RMSNorm_1", "final_norm")
+# Optimizer moments keep their dtype across (the reference's mu is bf16).
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _tensor(array, device, dtype) -> torch.Tensor:
@@ -64,3 +75,31 @@ def params_from_jax(cfg: LMConfig, params_np: dict[str, Any], device=None,
         raise ValueError(f"params do not match the config: missing "
                          f"{missing or ['embed/final_norm']}")
     return out
+
+
+def train_state_from_jax(cfg: LMConfig, state_np, apply_fn=None, tx=None,
+                         device=None) -> TrainState:
+    """The reference LM's TrainState, its leaves numpy arrays (the
+    caller does ``jax.tree.map(np.asarray, state)``), as the port's: the
+    step, f32 parameters that require grad, and the AdamW state (count,
+    mu in its own dtype, bf16 in the reference, f32 nu), so that both
+    sides continue from the same state. ``state_np.opt_state`` is
+    optax.adamw's chain state, whose first entry holds count/mu/nu.
+    ``apply_fn`` defaults to ``build_lm(cfg)``, ``tx`` to the
+    reference's ``AdamW(3e-4, weight_decay=0.01, mu_dtype=bf16)``."""
+    dev = resolve_device(device)
+    params = trainable(params_from_jax(cfg, state_np.params, device=dev,
+                                       dtype=torch.float32))
+    adam = state_np.opt_state[0]
+
+    def moment(tree):
+        return {key: moment(value) if isinstance(value, Mapping)
+                else _tensor(value, dev, _DTYPES[np.asarray(value).dtype.name])
+                for key, value in tree.items()}
+
+    opt_state = AdamWState(count=int(adam.count), mu=moment(adam.mu),
+                           nu=moment(adam.nu))
+    tx = tx or AdamW(3e-4, weight_decay=0.01, mu_dtype=torch.bfloat16)
+    return TrainState(step=int(state_np.step), params=params,
+                      opt_state=opt_state, tx=tx,
+                      apply_fn=apply_fn or build_lm(cfg))

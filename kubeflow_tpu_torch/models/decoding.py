@@ -22,6 +22,10 @@ Where the port differs from the reference, and why:
   an explicit A/B choice, never a silent fallback, and forcing a kernel
   on the CPU runs its plain twin (what the parity tests do). The
   thresholds default to 0: re-deriving them on the card is later work.
+- Serving records no autograd graph: ``generate``, ``forward_with_cache``
+  and the batcher's ``decode_step``/``prefill_slot`` run under
+  ``torch.no_grad``, so a trained state's parameters (which require
+  grad) are served as they are, with no copy.
 
 Weight-only int8 (``Int8Linear``/``quantize_decode_params``), the
 stacked-params path, MoE decode and the rolling-cache mid-sequence
@@ -168,6 +172,7 @@ def _concat_qkv(cfg: LMConfig, blk):
     return w.contiguous(), None
 
 
+@torch.no_grad()
 def fuse_qkv_params(cfg: LMConfig, params: dict[str, Any],
                     rows: int | None = None) -> dict[str, Any]:
     """Precompute each block's concatenated qkv weight once per params
@@ -440,6 +445,7 @@ def _params_device(params) -> torch.device:
     return params["embed"]["embedding"].device
 
 
+@torch.no_grad()
 def forward_with_cache(cfg: LMConfig, params: dict[str, Any], tokens,
                        cache: KVCache, last_logits_only: bool = False,
                        device=None):
@@ -492,6 +498,7 @@ def gumbel_noise(gen: torch.Generator, shape, device) -> torch.Tensor:
     return -torch.log(-torch.log(u.clamp_min(tiny)))
 
 
+@torch.no_grad()
 def generate(cfg: LMConfig, params: dict[str, Any], prompt,
              max_new_tokens: int, temperature: float = 0.0, rng=None,
              quantize_cache: bool = False, device=None) -> torch.Tensor:

@@ -176,6 +176,7 @@ def _batched_pos_attention(cfg: LMConfig, q, ck, cv, pos, rolling=False,
         k_scale=ks, v_scale=vs, rolling=rolling)
 
 
+@torch.no_grad()
 def decode_step(cfg: LMConfig, params: dict[str, Any], state: BatchState,
                 noise=None, rolling: bool = False):
     """One lockstep token for every slot: greedy, or per-slot sampling
@@ -246,6 +247,7 @@ def decode_chunk(cfg: LMConfig, params: dict[str, Any], state: BatchState,
     return state, torch.stack(toks)
 
 
+@torch.no_grad()
 def prefill_slot(cfg: LMConfig, params: dict[str, Any], state: BatchState,
                  slot: int, prompt, temp: float, noise=None,
                  rolling: bool = False):

@@ -8,11 +8,17 @@ a CPU tensor. Ring attention belongs to a later slice.
 from kubeflow_tpu_torch.ops.attention import (
     apply_rope,
     flash_attention,
+    flash_dkv,
+    flash_dq,
+    flash_forward,
     mha_reference,
 )
 
 __all__ = [
     "flash_attention",
+    "flash_forward",
+    "flash_dq",
+    "flash_dkv",
     "mha_reference",
     "apply_rope",
 ]

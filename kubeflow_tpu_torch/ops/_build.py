@@ -37,10 +37,10 @@ _LIB: ctypes.CDLL | None = None
 
 # Launches per kernel wrapper: each wrapper adds one where it launches
 # its kernel on the card, and nowhere else (the CPU twin is not a
-# launch). chip_smoke.py zeroes these around the serving run to show the
-# main path went through every kernel.
+# launch). chip_smoke.py zeroes these around the serving run and around
+# the training run to show each path went through its kernels.
 LAUNCHES = {"flash_attention": 0, "gemv": 0, "qkv_rope": 0,
-            "decode_attention": 0}
+            "decode_attention": 0, "flash_dq": 0, "flash_dkv": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,8 +50,12 @@ _SIGNATURES = {
     "kft_qkv_rope": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "kft_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _F, _I, _P],
-    "kft_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _F, _P],
+    "kft_flash_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _F, _P],
+    "kft_flash_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _F, _P],
+    "kft_flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _F, _P],
 }
 
 

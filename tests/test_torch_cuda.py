@@ -12,8 +12,12 @@ atol * rms(twin row), the RMS over the last axis, so every row of an
 attention output is held at its own scale: f32 outputs (1e-5, 1e-4)
 (summation order only); bf16 outputs, attention included, (2^-7, 2^-5):
 one ulp of the final rounding plus rounding at a different point inside
-(softmax weights rounded to bf16 at a different normalisation). Greedy
-tokens are compared exactly.
+(softmax weights rounded to bf16 at a different normalisation); the
+backward kernels' dq, dk and dv the same (p and ds round to bf16 at the
+same points in kernel and twin, the sums run in another order); lse is
+f32. Greedy tokens are compared exactly; gradients through the kernels
+against autograd through the f32 plain attention are held in relative
+norm per tensor at ``TOL_GRAD_NORM`` (below).
 """
 
 from __future__ import annotations
@@ -24,6 +28,12 @@ import torch
 pytestmark = pytest.mark.cuda
 
 TOL_F32, TOL_BF16 = (1e-5, 1e-4), (2.0 ** -7, 2.0 ** -5)
+# bf16 kernels vs f32 autograd: the kernel path rounds o, p and ds to
+# bf16, and delta = rowsum(dO * O) from a bf16 O meets dp in dp - delta,
+# where the two nearly cancel; so single elements can be off by far more
+# than an ulp, while the whole tensor stays within a few bf16 ulps
+# (2^-8) in relative norm.
+TOL_GRAD_NORM = 2e-2
 
 
 @pytest.fixture
@@ -137,6 +147,158 @@ def test_flash_kernel_matches_twin(card, causal, window, segmented, sq):
                                      segment_ids=seg), TOL_BF16)
 
 
+# (causal, window, segmented, heads, kv_heads, seq, head_dim)
+BACKWARD_CASES = {
+    "causal": (True, None, False, 4, 4, 256, 64),
+    "gqa": (True, None, False, 8, 2, 320, 128),
+    "window": (True, 48, False, 4, 2, 256, 64),
+    "segments": (True, None, True, 4, 2, 288, 64),
+    "non_causal": (False, None, False, 4, 2, 200, 64),
+    "ragged_window": (True, 256, False, 2, 2, 1000, 128),
+}
+
+
+def _backward_inputs(gen, case):
+    causal, window, segmented, h, hkv, s, d = BACKWARD_CASES[case]
+    q = _randn(gen, 2, h, s, d)
+    k, v = _randn(gen, 2, hkv, s, d), _randn(gen, 2, hkv, s, d)
+    do = _randn(gen, 2, h, s, d)
+    seg = None
+    if segmented:
+        seg = torch.sort(torch.randint(0, 4, (2, s), device="cuda",
+                                       generator=gen), dim=1).values
+    return q, k, v, do, dict(causal=causal, window=window, segment_ids=seg)
+
+
+@pytest.mark.parametrize("case", sorted(BACKWARD_CASES))
+def test_flash_forward_lse_matches_twin(card, case):
+    from kubeflow_tpu_torch.ops.attention import (
+        flash_forward,
+        flash_forward_reference,
+    )
+
+    q, k, v, _, kw = _backward_inputs(card, case)
+    o, lse = flash_forward(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_forward_reference(q, k, v, **kw)
+    _assert_close(o, o_ref, TOL_BF16)
+    _assert_close(lse, lse_ref, TOL_F32)
+
+
+@pytest.mark.parametrize("case", sorted(BACKWARD_CASES))
+def test_flash_backward_kernels_match_twins(card, case):
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.ops.attention import (
+        flash_dkv,
+        flash_dkv_reference,
+        flash_dq,
+        flash_dq_reference,
+        flash_forward_reference,
+    )
+
+    q, k, v, do, kw = _backward_inputs(card, case)
+    o, lse = flash_forward_reference(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    before = dict(_build.LAUNCHES)
+    dq = flash_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_dq"] == before["flash_dq"] + 1
+    assert _build.LAUNCHES["flash_dkv"] == before["flash_dkv"] + 1
+    _assert_close(dq, flash_dq_reference(q, k, v, do, lse, delta, **kw),
+                  TOL_BF16)
+    dk_ref, dv_ref = flash_dkv_reference(q, k, v, do, lse, delta, **kw)
+    _assert_close(dk, dk_ref, TOL_BF16)
+    _assert_close(dv, dv_ref, TOL_BF16)
+
+
+def test_flash_backward_kernels_are_deterministic(card):
+    """No atomics: every output element is summed by one thread in one
+    order, so two launches give the same bits."""
+    from kubeflow_tpu_torch.ops.attention import (
+        flash_dkv,
+        flash_dq,
+        flash_forward,
+    )
+
+    q, k, v, do, kw = _backward_inputs(card, "gqa")
+    o, lse = flash_forward(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    first = (flash_dq(q, k, v, do, lse, delta, **kw),
+             *flash_dkv(q, k, v, do, lse, delta, **kw))
+    second = (flash_dq(q, k, v, do, lse, delta, **kw),
+              *flash_dkv(q, k, v, do, lse, delta, **kw))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["causal", "gqa", "segments"])
+def test_gradients_through_flash_match_autograd_of_plain_attention(card,
+                                                                   case):
+    from kubeflow_tpu_torch.ops.attention import flash_attention, mha_reference
+
+    q, k, v, do, kw = _backward_inputs(card, case)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(out, leaves, do)
+    plain = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ref = mha_reference(*plain, **kw)
+    ref_grads = torch.autograd.grad(ref, plain, do.float())
+    torch.cuda.synchronize()
+    _assert_close(out, ref, TOL_BF16)
+    for g, r in zip(grads, ref_grads):
+        assert g.dtype == torch.bfloat16
+        err = float((g.float() - r).norm() / r.norm())
+        assert err <= TOL_GRAD_NORM, err
+
+
+def test_train_step_on_the_card_lowers_the_loss(card):
+    """A 2-layer bf16 LM takes six steps on one batch through the flash
+    kernels: every step launches forward, dq and dk/dv once per layer,
+    and the loss falls."""
+    from kubeflow_tpu_torch.models import (
+        LMConfig,
+        build_lm,
+        create_lm_state,
+        make_lm_train_step,
+    )
+    from kubeflow_tpu_torch.ops import _build
+
+    cfg = LMConfig(vocab=512, layers=2, dim=256, heads=4,
+                   dtype=torch.bfloat16)
+    state = create_lm_state(build_lm(cfg), seed=2)
+    step = make_lm_train_step(cfg=cfg)
+    tokens = torch.randint(0, cfg.vocab, (2, 128), device="cuda",
+                           generator=card)
+    _build.reset_launches()
+    losses = [float(step(state, {"tokens": tokens})[1]["loss"])
+              for _ in range(6)]
+    for name in ("flash_attention", "flash_dq", "flash_dkv"):
+        assert _build.LAUNCHES[name] == 6 * cfg.layers, _build.LAUNCHES
+    assert all(map(lambda x: x == x, losses)) and losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("dtype,dim,heads", [(torch.float32, 256, 4),
+                                             (torch.bfloat16, 192, 2)],
+                         ids=["f32", "head_dim_96"])
+def test_build_lm_auto_raises_on_the_card_for_what_no_kernel_takes(
+        card, dtype, dim, heads):
+    """The default core takes the kernels for every CUDA tensor: an f32
+    config, or a head dim the kernels were not built for, raises instead
+    of training on the plain path."""
+    from kubeflow_tpu_torch.models import LMConfig, build_lm, create_lm_state
+    from kubeflow_tpu_torch.ops import _build
+
+    cfg = LMConfig(vocab=64, layers=1, dim=dim, heads=heads, dtype=dtype)
+    state = create_lm_state(build_lm(cfg), seed=0)
+    tokens = torch.zeros(1, 32, dtype=torch.long, device="cuda")
+    _build.reset_launches()
+    with pytest.raises((TypeError, ValueError), match="bf16|head dims"):
+        state.apply_fn(state.params, tokens)
+    assert _build.LAUNCHES["flash_attention"] == 0
+
+
 def test_row_wise_ops_are_batch_invariant_on_the_card(card):
     """The decode step's PyTorch ops between kernels give each row the
     same bits whatever the batch: what lets the batched engine match
@@ -172,7 +334,8 @@ def test_engine_on_the_card_matches_generate(card):
         engine.submit_stream(p, lambda e, i=i: outs.__setitem__(i, e)
                              if e.get("done") else None, max_new_tokens=12)
     engine.drain()
-    assert all(n > 0 for n in _build.LAUNCHES.values()), _build.LAUNCHES
+    serving = ("flash_attention", "gemv", "qkv_rope", "decode_attention")
+    assert all(_build.LAUNCHES[n] > 0 for n in serving), _build.LAUNCHES
     for i, p in enumerate(prompts):
         ref = generate(cfg, params, [p], 12)[0].tolist()
         assert outs[i]["tokens"] == ref

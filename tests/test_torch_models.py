@@ -57,7 +57,7 @@ def test_converter_and_forward_match_flax(window):
     model, jparams, tparams = _params(jcfg, tcfg)
     tokens = _tokens(np.random.default_rng(0), jcfg.vocab, 2, 12)
     ref = model.apply({"params": jparams}, jnp.asarray(tokens))
-    out = TransformerLM(tcfg, tparams)(torch.from_numpy(tokens).long())
+    out = TransformerLM(tcfg)(tparams, torch.from_numpy(tokens).long())
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
                                rtol=0)
 

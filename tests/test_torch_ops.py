@@ -25,6 +25,9 @@ from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops.attention import (
     apply_rope,
     flash_attention,
+    flash_dkv,
+    flash_dq,
+    flash_forward,
     mha_reference,
 )
 from kubeflow_tpu_torch.ops.decode_attention import decode_attention
@@ -281,12 +284,16 @@ def test_apply_rope_matches_jax(offset):
 
 
 @pytest.mark.parametrize("op", ["gemv", "qkv_rope", "decode_attention",
-                                "flash_attention"])
+                                "flash_attention", "flash_forward",
+                                "flash_attention_grad", "flash_dq",
+                                "flash_dkv"])
 def test_non_cpu_tensors_never_fall_back_to_the_twin(op):
     """A tensor that is not on the CPU goes to the kernel or raises: the
     plain twin serves CPU tensors only (meta tensors stand in for a
     device this machine does not have)."""
     meta = dict(device="meta", dtype=torch.bfloat16)
+    q, kv = torch.empty(1, 2, 8, 32, **meta), torch.empty(1, 1, 8, 32, **meta)
+    rows = torch.empty(1, 2, 8, device="meta", dtype=torch.float32)
     calls = {
         "gemv": lambda: gemv(torch.empty(2, 64, **meta),
                              torch.empty(64, 32, **meta)),
@@ -298,9 +305,12 @@ def test_non_cpu_tensors_never_fall_back_to_the_twin(op):
             torch.empty(1, 2, 1, 32, **meta),
             torch.empty(1, 1, 16, 32, **meta),
             torch.empty(1, 1, 16, 32, **meta), 3),
-        "flash_attention": lambda: flash_attention(
-            torch.empty(1, 2, 8, 32, **meta), torch.empty(1, 1, 8, 32, **meta),
-            torch.empty(1, 1, 8, 32, **meta), causal=True),
+        "flash_attention": lambda: flash_attention(q, kv, kv, causal=True),
+        "flash_forward": lambda: flash_forward(q, kv, kv, causal=True),
+        "flash_attention_grad": lambda: flash_attention(
+            q.requires_grad_(True), kv, kv, causal=True),
+        "flash_dq": lambda: flash_dq(q, kv, kv, q, rows, rows, causal=True),
+        "flash_dkv": lambda: flash_dkv(q, kv, kv, q, rows, rows, causal=True),
     }
     before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors"):
