@@ -1,4 +1,5 @@
-// Flash-attention backward: the dq pass and the dk/dv pass, with GQA.
+// Flash-attention backward on Hopper's tensor cores: the dq pass and the
+// dk/dv pass, with GQA.
 //
 // Replaces the Pallas kernels kubeflow_tpu/ops/attention.py `_dq_kernel`
 // and `_dkv_kernel` (driven by `_flash_backward`). q/do/dq (B, H, Sq, D),
@@ -15,41 +16,73 @@
 // of the forward: causal with an optional window band, or non-causal; an
 // optional segment-id document mask (ids non-decreasing, self-attention).
 //
-// Bound on the H100: operations. At the training shape (S=2048, D=128)
-// the dq pass does 6*D flops per live pair and the dk/dv pass 8*D, on
-// tiles that are read a few times each: far above the card's ridge.
+// Bound on the H100: operations. The dq pass does 6*D flops per live
+// pair (s, dp, dq), the dk/dv pass 8*D (s, dp, dv, dk), on 64 x 64 tiles
+// that load 2 x 64 x D bf16 each: at D=128 some 100 flops per byte
+// loaded, and each byte comes from L2 for all but its first reader.
 //
-// Design, simple first (the forward's scheme, CUDA-core FMA, no tensor
-// cores yet). The TPU kernels carry their accumulators across a
-// sequential grid axis; here one block owns its output tile and a loop
-// inside the block takes the place of that axis, so each output element
-// is summed by one thread in one fixed order: no atomics, and two
-// launches on the same inputs give the same bits.
-//  * dq: a block owns 32 query rows of one (batch, head) and walks the
-//    live 64-key tiles, K and V staged in shared memory. As in the
-//    forward, 8 threads of one warp share a row: each computes 8 of the
-//    tile's 64 (s, dp) pairs and owns D/8 of the row's dq columns.
-//  * dk/dv: a block owns 32 keys of one (batch, kv head) and walks the
-//    live 64-row query tiles of EVERY query head of its group, so the
-//    group's sum stays in registers and (B, Hkv, Sk, D) is written
-//    directly (no per-query-head transient). 8 threads share a key row:
-//    each computes 8 of the tile's 64 pairs and owns D/8 columns of both
-//    dk and dv. Shared memory (about 83 KB at D=128, 149 KB at D=256)
-//    is past the 48 KB default, so the launch opts in first.
-// Tiles wholly outside the causal band, or whose segment-id ranges are
-// disjoint, are skipped with the reference's predicates; keys and rows
-// past the sequence ends are never read and never written.
-#include "common.cuh"
+// Design: FlashAttention-2's two-kernel dataflow on Hopper's wgmma. A
+// block is one warpgroup (128 threads); every product is a wgmma with
+// f32 accumulators in registers.
+//  * dq: a block owns 64 query rows of one (batch, head). Q and dO are
+//    loaded once into swizzled shared memory, bf16 as stored. The block
+//    walks the live 64-key tiles; K and V stream through a two-stage
+//    ring, the copies of tile j+1 in flight while tile j computes. Per
+//    tile: S = Q K^T and dP = dO V^T (both operands from shared memory),
+//    then p and ds elementwise in registers (lse and delta of the
+//    thread's two rows held in registers), then dQ += bf16(dS) K with dS
+//    as the register A operand (the accumulator layout is the A layout:
+//    no shuffle) and K read MN-major through the descriptor's transpose
+//    bit (no transposed copy). dQ stays in registers until the epilogue.
+//  * dk/dv: a block owns 64 keys of one (batch, kv head); K and V are
+//    loaded once. It walks every query head of the GQA group and, for
+//    each, every live 64-row query tile: Q, dO, lse and delta stream
+//    through the ring. Per tile: S^T = K Q^T and dP^T = V dO^T, then P^T
+//    and dS^T, then dV += bf16(P^T) dO and dK += bf16(dS^T) Q. The group
+//    sum stays in the accumulators; (B, Hkv, Sk, D) is written once.
+// Copies are 16-byte cp.async copies, zero-filled past the sequence end,
+// that every thread issues for its share, not TMA from a producer warp:
+// no tensor map is built per call, and with two blocks on each SM at
+// D=128 one block's loads and elementwise work run under the other's
+// products. With no producer warpgroup there is nothing to rebalance
+// with setmaxnreg: the one warpgroup may use 255 registers a thread.
+// Head dims: D < 64 is padded to one 64-column block in shared memory;
+// the padding never reaches a stored result (the score products run
+// D/16 k steps, output columns past D are not stored). At D=256 the
+// output columns are split into two passes of 128 (the dk/dv pass would
+// otherwise hold 256 f32 accumulators a thread): each pass walks the
+// tiles again and recomputes s and dp, so D=256 does the score products
+// twice; the dq pass does the same for its 64 x 256 dQ.
+// Tiles outside the causal band or with disjoint segment-id ranges are
+// skipped with the reference's predicates; the per-pair mask runs only
+// on tiles that the band, a segment boundary or a sequence end cuts. No
+// atomics: each output element is owned by one block and summed in one
+// fixed order, so two launches give the same bits. Blocks start heaviest
+// first (the causal band's longest rows or keys) to shorten the tail.
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-// dq: query rows per block, keys per tile.
-constexpr int kQ_Q = 32;
-constexpr int kQ_K = 64;
-// dk/dv: keys per block, query rows per tile.
-constexpr int kKV_K = 32;
-constexpr int kKV_Q = 64;
+constexpr int kThreads = 128;     // one warpgroup
+constexpr int kTile = kTileRows;  // query rows and keys per tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Shape {
+  static constexpr int kPad = D < 64 ? 64 : D;           // columns in smem
+  static constexpr int kCols = kPad > 128 ? 128 : kPad;  // per output pass
+  static constexpr int kPasses = kPad / kCols;
+  static constexpr int kSteps = D / 16;  // k steps of the score products
+  static constexpr uint32_t kTileBytes = kTile * kPad * 2;
+};
+
+// 2^x on the special-function unit (ex2.approx, relative error ~2^-22;
+// subnormal results flush to 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ bool pair_live(int row, int col, int Sq, int Sk,
                                           int causal, int window,
@@ -63,283 +96,370 @@ __device__ __forceinline__ bool pair_live(int row, int col, int Sq, int Sk,
   return keep;
 }
 
-// Copy `rows` rows of D bf16 values starting at row r0 of a (S, D)
-// matrix into shared memory with row stride `stride` (bf16 elements),
-// zero-filling rows at or past S.
-template <int D>
-__device__ __forceinline__ void stage_bf16(bf16* dst, int stride,
-                                           const bf16* src, int r0, int rows,
-                                           int S) {
-  for (int i = threadIdx.x; i < rows * D / 2; i += kThreads) {
-    const int r = (2 * i) / D;
-    const int d = (2 * i) % D;
-    __nv_bfloat162 x = __floats2bfloat162_rn(0.f, 0.f);
-    if (r0 + r < S)
-      x = *reinterpret_cast<const __nv_bfloat162*>(src + (size_t)(r0 + r) * D + d);
-    *reinterpret_cast<__nv_bfloat162*>(dst + r * stride + d) = x;
+// True when every pair of rows [q0, q0 + 64) x keys [k0, k0 + 64) is live:
+// the tile needs no per-pair mask.
+__device__ __forceinline__ bool tile_full(int q0, int k0, int Sq, int Sk,
+                                          int causal, int window,
+                                          const int* segb) {
+  if (q0 + kTile > Sq || k0 + kTile > Sk) return false;
+  if (causal) {
+    if (q0 < k0 + kTile - 1) return false;
+    if (window > 0 && k0 <= q0 + kTile - 1 - window) return false;
   }
+  if (segb != nullptr) {
+    const int id = segb[q0];
+    if (segb[q0 + kTile - 1] != id || segb[k0] != id ||
+        segb[k0 + kTile - 1] != id)
+      return false;
+  }
+  return true;
 }
 
-// The same, widened to f32 (row stride `stride` floats).
+// The reference's segment skip: ids are non-decreasing, so the two tiles
+// share a document only if their id ranges overlap.
+__device__ __forceinline__ bool segments_meet(const int* segb, int q0, int k0,
+                                              int Sq, int Sk) {
+  if (segb == nullptr) return true;
+  return segb[q0] <= segb[min(k0 + kTile, Sk) - 1] &&
+         segb[k0] <= segb[min(q0 + kTile, Sq) - 1];
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 128)
+    wgmma_rs_m64n128_tb(d, a, b);
+  else
+    wgmma_rs_m64n64_tb(d, a, b);
+}
+
+// The two score products of a tile, x = A_x B_x^T over D: both operands
+// K-major 64-row tiles in shared memory; waits for both.
 template <int D>
-__device__ __forceinline__ void stage_f32(float* dst, int stride,
-                                          const bf16* src, int r0, int rows,
-                                          int S) {
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i % D;
-    dst[r * stride + d] = (r0 + r < S) ? to_f32(src[(size_t)(r0 + r) * D + d]) : 0.f;
+__device__ __forceinline__ void score_products(float (&x)[32], float (&y)[32],
+                                               uint32_t ax, uint32_t bx,
+                                               uint32_t ay, uint32_t by) {
+  wgmma_fence();
+  wgmma_ss_m64n64_first(x, desc_kmajor(ax, 0), desc_kmajor(bx, 0));
+#pragma unroll
+  for (int kk = 1; kk < Shape<D>::kSteps; ++kk)
+    wgmma_ss_m64n64(x, desc_kmajor(ax, kk), desc_kmajor(bx, kk));
+  wgmma_ss_m64n64_first(y, desc_kmajor(ay, 0), desc_kmajor(by, 0));
+#pragma unroll
+  for (int kk = 1; kk < Shape<D>::kSteps; ++kk)
+    wgmma_ss_m64n64(y, desc_kmajor(ay, kk), desc_kmajor(by, kk));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(x);
+  fence_regs(y);
+}
+
+// Rows `lo` and `lo + 8` of a 64 x N accumulator, columns [c0, c0 + N),
+// to a row-major (rows, D) bf16 matrix; rows at or past `rows` and
+// columns at or past D are not written.
+template <int D, int N>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[N / 2],
+                                           int lo, int rows, int c0,
+                                           int lane) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = c0 + 8 * j + 2 * (lane % 4);
+    if (col >= D) continue;
+    if (lo < rows)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)lo * D + col) =
+          __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+    if (lo + 8 < rows)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(lo + 8) * D + col) =
+          __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (2 * kQ_Q * (D + 1) + kQ_Q * (kQ_K + 1)) +
-         sizeof(bf16) * (2 * kQ_K * (D + 2));
+  // Q, dO, and two ring stages of (K, V); 1 KB to align the tiles.
+  return 6 * Shape<D>::kTileBytes + 1024;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                const int* __restrict__ seg, bf16* __restrict__ dq, int H,
-                int Hkv, int Sq, int Sk, int causal, int window, float scale) {
-  constexpr int QS = D + 1;     // f32 row stride (padded: no bank conflicts)
-  constexpr int KS = D + 2;     // bf16 row stride (padded)
-  constexpr int PS = kQ_K + 1;  // f32 row stride of the ds tile
-  constexpr int DJ = D / 8;     // dq columns per thread
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sdo = sq + kQ_Q * QS;
-  float* sds = sdo + kQ_Q * QS;
-  bf16* sk = reinterpret_cast<bf16*>(sds + kQ_Q * PS);
-  bf16* sv = sk + kQ_K * KS;
+                const int* __restrict__ seg, bf16* __restrict__ dq, int B,
+                int H, int Hkv, int Sq, int Sk, int causal, int window,
+                float scale) {
+  using Sh = Shape<D>;
+  constexpr uint32_t TB = Sh::kTileBytes;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t sq = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t sdo = sq + TB;
+  const uint32_t ring = sdo + TB;  // stage s: K at ring + 2*s*TB, V + TB
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int bhs = B * H;
+  const int bh = blockIdx.x % bhs;
+  const int qt = blockIdx.x / bhs;
+  const int nq = (Sq + kTile - 1) / kTile;
+  const int q0 = (causal ? nq - 1 - qt : qt) * kTile;
   const int b = bh / H;
   const int kvh = (bh % H) / (H / Hkv);
-  const int q0 = blockIdx.x * kQ_Q;
-  const bf16* qb = q + (size_t)bh * Sq * D;
-  const bf16* dob = dout + (size_t)bh * Sq * D;
   const bf16* kb = k + (size_t)(b * Hkv + kvh) * Sk * D;
   const bf16* vb = v + (size_t)(b * Hkv + kvh) * Sk * D;
   const int* segb = seg != nullptr ? seg + (size_t)b * Sq : nullptr;
 
-  stage_f32<D>(sq, QS, qb, q0, kQ_Q, Sq);
-  stage_f32<D>(sdo, QS, dob, q0, kQ_Q, Sq);
+  load_rows<D, kThreads>(sq, q + (size_t)bh * Sq * D, q0, Sq, tid);
+  load_rows<D, kThreads>(sdo, dout + (size_t)bh * Sq * D, q0, Sq, tid);
 
-  const int tr = tid / 8;  // query row within the tile
-  const int tc = tid % 8;  // this thread's slice of the row
-  const int row = q0 + tr;
-  const float row_lse = row < Sq ? lse[(size_t)bh * Sq + row] : 0.f;
-  const float row_delta = row < Sq ? delta[(size_t)bh * Sq + row] : 0.f;
-  float acc[DJ];
-#pragma unroll
-  for (int j = 0; j < DJ; ++j) acc[j] = 0.f;
+  // This thread's two accumulator rows, their lse (in log2 units) and
+  // delta.
+  const int r_lo = q0 + 16 * warp + lane / 4;
+  const int r_hi = r_lo + 8;
+  const float* lse_b = lse + (size_t)bh * Sq;
+  const float* delta_b = delta + (size_t)bh * Sq;
+  const float lse_lo = r_lo < Sq ? lse_b[r_lo] * kLog2e : 0.f;
+  const float lse_hi = r_hi < Sq ? lse_b[r_hi] * kLog2e : 0.f;
+  const float dl_lo = r_lo < Sq ? delta_b[r_lo] : 0.f;
+  const float dl_hi = r_hi < Sq ? delta_b[r_hi] : 0.f;
+  const float scale_log2 = scale * kLog2e;
 
   int k_begin = 0;
   int k_end = Sk;
   if (causal) {
-    k_end = min(Sk, q0 + kQ_Q);
+    k_end = min(Sk, q0 + kTile);
     if (window > 0) k_begin = max(0, q0 - window + 1);
   }
-  k_begin = (k_begin / kQ_K) * kQ_K;
-  int seg_qlo = 0, seg_qhi = 0;
-  if (segb != nullptr) {
-    seg_qlo = segb[q0];
-    seg_qhi = segb[min(q0 + kQ_Q, Sq) - 1];
-  }
+  k_begin = (k_begin / kTile) * kTile;
+  auto next_live = [&](int k0) {  // the first live key tile at or past k0
+    while (k0 < k_end && !segments_meet(segb, q0, k0, Sq, Sk)) k0 += kTile;
+    return k0;
+  };
+  const int first = next_live(k_begin);
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kQ_K) {
-    if (segb != nullptr) {
-      const int klo = segb[k0];
-      const int khi = segb[min(k0 + kQ_K, Sk) - 1];
-      if (seg_qlo > khi || klo > seg_qhi) continue;  // uniform per block
-    }
-    __syncthreads();  // everyone is done with the previous tile
-    stage_bf16<D>(sk, KS, kb, k0, kQ_K, Sk);
-    stage_bf16<D>(sv, KS, vb, k0, kQ_K, Sk);
-    __syncthreads();
-
-    const float* qrow = sq + tr * QS;
-    const float* dorow = sdo + tr * QS;
+  float s[32], dp[32];
+  uint32_t frag[4][4];
+#pragma unroll 1
+  for (int pass = 0; pass < Sh::kPasses; ++pass) {
+    float acc[Sh::kCols / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = tc + 8 * j;
-      const bf16* krow = sk + c * KS;
-      const bf16* vrow = sv + c * KS;
-      float s = 0.f;
-      float dp = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(qrow[d], to_f32(krow[d]), s);
-        dp = fmaf(dorow[d], to_f32(vrow[d]), dp);
+    for (int i = 0; i < Sh::kCols / 2; ++i) acc[i] = 0.f;
+    int k0 = first;
+    int stage = 0;
+    if (k0 < k_end) {
+      load_rows<D, kThreads>(ring, kb, k0, Sk, tid);
+      load_rows<D, kThreads>(ring + TB, vb, k0, Sk, tid);
+    }
+    cp_async_commit();
+    while (k0 < k_end) {
+      const int k_next = next_live(k0 + kTile);
+      if (k_next < k_end) {
+        const uint32_t nk = ring + (stage ^ 1) * 2 * TB;
+        load_rows<D, kThreads>(nk, kb, k_next, Sk, tid);
+        load_rows<D, kThreads>(nk + TB, vb, k_next, Sk, tid);
       }
-      float ds = 0.f;
-      if (pair_live(row, k0 + c, Sq, Sk, causal, window, segb)) {
-        const float p = expf(__fmul_rn(s, scale) - row_lse);
-        ds = p * (dp - row_delta) * scale;
+      cp_async_commit();
+      cp_async_wait<1>();  // this tile (and Q, dO) landed
+      fence_proxy_async();
+      __syncthreads();
+
+      const uint32_t sk = ring + stage * 2 * TB;
+      score_products<D>(s, dp, sq, sk, sdo, sk + TB);
+      const bool full = tile_full(q0, k0, Sq, Sk, causal, window, segb);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const bool hi = e >= 2;
+          const int col = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
+          float p = exp2_approx(fmaf(s[i], scale_log2, -(hi ? lse_hi : lse_lo)));
+          if (!full && !pair_live(hi ? r_hi : r_lo, col, Sq, Sk, causal,
+                                  window, segb))
+            p = 0.f;
+          dp[i] = p * (dp[i] - (hi ? dl_hi : dl_lo)) * scale;  // ds
+        }
       }
-      sds[tr * PS + c] = round_bf16(ds);
-    }
-    __syncwarp();  // the row's ds values come from this warp only
-
-    const float* dsrow = sds + tr * PS;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tc + 8 * j;
-      float a = acc[j];
-#pragma unroll 16
-      for (int c = 0; c < kQ_K; ++c) a = fmaf(dsrow[c], to_f32(sk[c * KS + d]), a);
-      acc[j] = a;
-    }
-  }
-
-  if (row < Sq) {
-    bf16* out = dq + ((size_t)bh * Sq + row) * D;
+      for (int kk = 0; kk < 4; ++kk) a_fragment(frag[kk], dp, kk);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) out[tc + 8 * j] = __float2bfloat16(acc[j]);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<Sh::kCols>(
+            acc, frag[kk],
+            desc_mnmajor<Sh::kCols>(sk, pass * Sh::kCols / 64, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncthreads();  // everyone is done with this stage
+      k0 = k_next;
+      stage ^= 1;
+    }
+    store_rows<D, Sh::kCols>(dq + (size_t)bh * Sq * D, acc,
+                             q0 + 16 * warp + lane / 4, Sq,
+                             pass * Sh::kCols, lane);
   }
+  cp_async_wait<0>();
 }
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (2 * kKV_K * (D + 1) + 2 * kKV_K * (kKV_Q + 1) +
-                          2 * kKV_Q) +
-         sizeof(bf16) * (2 * kKV_Q * (D + 2));
+  // K, V, and two ring stages of (Q, dO, lse, delta); 1 KB to align.
+  return 2 * Shape<D>::kTileBytes + 2 * (2 * Shape<D>::kTileBytes + 1024) +
+         1024;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, const int* __restrict__ seg,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Hkv,
-                 int Sq, int Sk, int causal, int window, float scale) {
-  constexpr int FS = D + 1;      // f32 row stride of K, V
-  constexpr int QS = D + 2;      // bf16 row stride of Q, dO
-  constexpr int PS = kKV_Q + 1;  // f32 row stride of the p / ds tiles
-  constexpr int DJ = D / 8;      // dk and dv columns per thread
-  extern __shared__ float smem[];
-  float* sk = smem;
-  float* sv = sk + kKV_K * FS;
-  float* sp = sv + kKV_K * FS;
-  float* sds = sp + kKV_K * PS;
-  float* slse = sds + kKV_K * PS;
-  float* sdelta = slse + kKV_Q;
-  bf16* sq = reinterpret_cast<bf16*>(sdelta + kKV_Q);
-  bf16* sdo = sq + kKV_Q * QS;
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H,
+                 int Hkv, int Sq, int Sk, int causal, int window,
+                 float scale) {
+  using Sh = Shape<D>;
+  constexpr uint32_t TB = Sh::kTileBytes;
+  constexpr uint32_t kStage = 2 * TB + 1024;  // Q, dO, lse[64], delta[64]
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t sk = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t sv = sk + TB;
+  const uint32_t ring = sv + TB;
+  const uint8_t* ring_ptr = smem + (ring - smem_u32(smem));
 
   const int tid = threadIdx.x;
-  const int bkv = blockIdx.y;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int bkvs = B * Hkv;
+  const int bkv = blockIdx.x % bkvs;
+  // Key tile 0 first: under a causal mask it sees the most query rows.
+  const int k0 = (blockIdx.x / bkvs) * kTile;
   const int b = bkv / Hkv;
   const int kvh = bkv % Hkv;
   const int group = H / Hkv;
-  const int k0 = blockIdx.x * kKV_K;
   const int* segb = seg != nullptr ? seg + (size_t)b * Sq : nullptr;
 
-  stage_f32<D>(sk, FS, k + (size_t)bkv * Sk * D, k0, kKV_K, Sk);
-  stage_f32<D>(sv, FS, v + (size_t)bkv * Sk * D, k0, kKV_K, Sk);
+  load_rows<D, kThreads>(sk, k + (size_t)bkv * Sk * D, k0, Sk, tid);
+  load_rows<D, kThreads>(sv, v + (size_t)bkv * Sk * D, k0, Sk, tid);
 
-  const int tr = tid / 8;  // key row within the block
-  const int tc = tid % 8;  // this thread's slice of the row
-  const int col = k0 + tr;
-  float acc_k[DJ], acc_v[DJ];
-#pragma unroll
-  for (int j = 0; j < DJ; ++j) {
-    acc_k[j] = 0.f;
-    acc_v[j] = 0.f;
-  }
-
-  // Query rows that can see a key of [k0, k0 + kKV_K): row >= k0 when
-  // causal, and row < (k0 + kKV_K - 1) + window under a window band.
+  // Query rows that can see a key of [k0, k0 + 64): row >= k0 when
+  // causal, and row < (k0 + 63) + window under a window band.
   int q_begin = 0;
   int q_end = Sq;
   if (causal) {
     q_begin = k0;
-    if (window > 0) q_end = min(Sq, k0 + kKV_K - 1 + window);
+    if (window > 0) q_end = min(Sq, k0 + kTile - 1 + window);
   }
-  q_begin = (q_begin / kKV_Q) * kKV_Q;
-  int seg_klo = 0, seg_khi = 0;
-  if (segb != nullptr) {
-    seg_klo = segb[k0];
-    seg_khi = segb[min(k0 + kKV_K, Sk) - 1];
-  }
+  // The tiles run over (query head g of the group, query tile q0).
+  auto advance = [&](int& g, int& q0) {
+    do {
+      q0 += kTile;
+      if (q0 >= q_end) {
+        q0 = q_begin;
+        ++g;
+      }
+    } while (g < group && !segments_meet(segb, q0, k0, Sq, Sk));
+  };
+  int g_first = 0;
+  int q_first = q_begin;
+  if (q_begin >= q_end)
+    g_first = group;
+  else if (!segments_meet(segb, q_first, k0, Sq, Sk))
+    advance(g_first, q_first);
+  auto load_tile = [&](int g, int q0, int st) {
+    const size_t bh = (size_t)b * H + kvh * group + g;
+    const uint32_t dst = ring + st * kStage;
+    load_rows<D, kThreads>(dst, q + bh * Sq * D, q0, Sq, tid);
+    load_rows<D, kThreads>(dst + TB, dout + bh * Sq * D, q0, Sq, tid);
+    const int i = tid % kTile;
+    const bool valid = q0 + i < Sq;
+    const float* src = (tid < kTile ? lse : delta) + bh * Sq + (valid ? q0 + i : 0);
+    cp_async4(dst + 2 * TB + (tid < kTile ? 0 : 4 * kTile) + 4 * i, src,
+              valid);
+  };
 
-  for (int g = 0; g < group; ++g) {
-    const int bh = b * H + kvh * group + g;
-    const bf16* qb = q + (size_t)bh * Sq * D;
-    const bf16* dob = dout + (size_t)bh * Sq * D;
-    for (int q0 = q_begin; q0 < q_end; q0 += kKV_Q) {
-      if (segb != nullptr) {
-        const int qlo = segb[q0];
-        const int qhi = segb[min(q0 + kKV_Q, Sq) - 1];
-        if (qlo > seg_khi || seg_klo > qhi) continue;  // uniform per block
-      }
-      __syncthreads();  // everyone is done with the previous tile
-      stage_bf16<D>(sq, QS, qb, q0, kKV_Q, Sq);
-      stage_bf16<D>(sdo, QS, dob, q0, kKV_Q, Sq);
-      for (int i = tid; i < kKV_Q; i += kThreads) {
-        const bool in = q0 + i < Sq;
-        slse[i] = in ? lse[(size_t)bh * Sq + q0 + i] : 0.f;
-        sdelta[i] = in ? delta[(size_t)bh * Sq + q0 + i] : 0.f;
-      }
+  // This thread's two accumulator rows (keys).
+  const int c_lo = k0 + 16 * warp + lane / 4;
+  const int c_hi = c_lo + 8;
+  const float scale_log2 = scale * kLog2e;
+  float s[32], dp[32];
+  uint32_t pf[4][4], df[4][4];
+#pragma unroll 1
+  for (int pass = 0; pass < Sh::kPasses; ++pass) {
+    float acc_k[Sh::kCols / 2], acc_v[Sh::kCols / 2];
+#pragma unroll
+    for (int i = 0; i < Sh::kCols / 2; ++i) {
+      acc_k[i] = 0.f;
+      acc_v[i] = 0.f;
+    }
+    int g = g_first;
+    int q0 = q_first;
+    int stage = 0;
+    if (g < group) load_tile(g, q0, 0);
+    cp_async_commit();
+    while (g < group) {
+      int g_next = g;
+      int q_next = q0;
+      advance(g_next, q_next);
+      if (g_next < group) load_tile(g_next, q_next, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this tile (and K, V) landed
+      fence_proxy_async();
       __syncthreads();
 
-      const float* krow = sk + tr * FS;
-      const float* vrow = sv + tr * FS;
+      const uint32_t sq = ring + stage * kStage;
+      const uint32_t sdo = sq + TB;
+      const float* lse_t =
+          reinterpret_cast<const float*>(ring_ptr + stage * kStage + 2 * TB);
+      const float* delta_t = lse_t + kTile;
+      score_products<D>(s, dp, sk, sq, sv, sdo);  // S^T, dP^T
+      const bool full = tile_full(q0, k0, Sq, Sk, causal, window, segb);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int r = tc + 8 * j;
-        const bf16* qrow = sq + r * QS;
-        const bf16* dorow = sdo + r * QS;
-        float s = 0.f;
-        float dp = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(to_f32(qrow[d]), krow[d], s);
-          dp = fmaf(to_f32(dorow[d]), vrow[d], dp);
-        }
-        float p = 0.f;
-        float ds = 0.f;
-        if (pair_live(q0 + r, col, Sq, Sk, causal, window, segb)) {
-          p = expf(__fmul_rn(s, scale) - slse[r]);
-          ds = p * (dp - sdelta[r]) * scale;
-        }
-        sp[tr * PS + r] = round_bf16(p);
-        sds[tr * PS + r] = round_bf16(ds);
-      }
-      __syncwarp();  // the key row's p and ds come from this warp only
-
-      const float* prow = sp + tr * PS;
-      const float* dsrow = sds + tr * PS;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int d = tc + 8 * j;
-        float ak = acc_k[j];
-        float av = acc_v[j];
-#pragma unroll 16
-        for (int r = 0; r < kKV_Q; ++r) {
-          av = fmaf(prow[r], to_f32(sdo[r * QS + d]), av);
-          ak = fmaf(dsrow[r], to_f32(sq[r * QS + d]), ak);
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const int qc = 8 * j + 2 * (lane % 4) + (e & 1);
+          float p = exp2_approx(fmaf(s[i], scale_log2, -lse_t[qc] * kLog2e));
+          if (!full && !pair_live(q0 + qc, e >= 2 ? c_hi : c_lo, Sq, Sk,
+                                  causal, window, segb))
+            p = 0.f;
+          s[i] = p;
+          dp[i] = p * (dp[i] - delta_t[qc]) * scale;  // ds
         }
-        acc_k[j] = ak;
-        acc_v[j] = av;
       }
-    }
-  }
-
-  if (col < Sk) {
-    const size_t off = ((size_t)bkv * Sk + col) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dk[off + tc + 8 * j] = __float2bfloat16(acc_k[j]);
-      dv[off + tc + 8 * j] = __float2bfloat16(acc_v[j]);
+      for (int kk = 0; kk < 4; ++kk) {
+        a_fragment(pf[kk], s, kk);
+        a_fragment(df[kk], dp, kk);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<Sh::kCols>(
+            acc_v, pf[kk],
+            desc_mnmajor<Sh::kCols>(sdo, pass * Sh::kCols / 64, kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<Sh::kCols>(
+            acc_k, df[kk],
+            desc_mnmajor<Sh::kCols>(sq, pass * Sh::kCols / 64, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      __syncthreads();  // everyone is done with this stage
+      g = g_next;
+      q0 = q_next;
+      stage ^= 1;
     }
+    const size_t off = (size_t)bkv * Sk * D;
+    store_rows<D, Sh::kCols>(dk + off, acc_k, c_lo, Sk, pass * Sh::kCols,
+                             lane);
+    store_rows<D, Sh::kCols>(dv + off, acc_v, c_lo, Sk, pass * Sh::kCols,
+                             lane);
   }
+  cp_async_wait<0>();
 }
 
 template <int D>
@@ -352,13 +472,14 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
       flash_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + kQ_Q - 1) / kQ_Q, B * H);
-  flash_dq_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  const int blocks = (Sq + kTile - 1) / kTile * B * H;
+  if (blocks == 0) return 0;
+  flash_dq_kernel<D><<<blocks, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(seg), static_cast<bf16*>(dq), H, Hkv, Sq, Sk,
-      causal, window, scale);
+      static_cast<const int*>(seg), static_cast<bf16*>(dq), B, H, Hkv, Sq,
+      Sk, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -372,13 +493,14 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
       flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sk + kKV_K - 1) / kKV_K, B * Hkv);
-  flash_dkv_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  const int blocks = (Sk + kTile - 1) / kTile * B * Hkv;
+  if (blocks == 0) return 0;
+  flash_dkv_kernel<D><<<blocks, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<const int*>(seg), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Hkv, Sq, Sk, causal, window, scale);
+      static_cast<bf16*>(dv), B, H, Hkv, Sq, Sk, causal, window, scale);
   return (int)cudaGetLastError();
 }
 

@@ -18,9 +18,9 @@ set -uo pipefail
 fault=${1:?usage: $0 none|dq_diagonal|dkv_last_tile|dkv_group_head}
 case $fault in
   none) expr='' ;;
-  dq_diagonal) expr='s/pair_live(row, k0 + c,/pair_live(row, k0 + c + 1,/' ;;
-  dkv_last_tile) expr='s/q0 < q_end; q0 += kKV_Q/q0 < q_end - kKV_Q; q0 += kKV_Q/' ;;
-  dkv_group_head) expr='s/g < group; ++g/g < group - 1; ++g/' ;;
+  dq_diagonal) expr='s/pair_live(hi ? r_hi : r_lo, col,/pair_live(hi ? r_hi : r_lo, col + 1,/' ;;
+  dkv_last_tile) expr='s/if (q0 >= q_end) {/if (q0 >= q_end - kTile) {/' ;;
+  dkv_group_head) expr='s/g < group/g < group - 1/' ;;
   *) echo "unknown fault: $fault" >&2; exit 2 ;;
 esac
 

@@ -1,0 +1,59 @@
+#!/usr/bin/env python3
+"""Count the tensor-core instructions in the port's built kernels.
+
+Builds the kernel library (``kubeflow_tpu_torch/ops/_build.py``) and reads
+its SASS with ``cuobjdump -sass``: prints, for every kernel instance, how
+many HGMMA (wgmma) and HMMA (mma.sync) instructions it holds, and exits 1
+when a flash backward instance (``flash_dq_kernel``, ``flash_dkv_kernel``)
+holds none. Run from the root of a checkout on a machine with the CUDA
+toolkit: ``python3 testing/torch_sass_check.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from kubeflow_tpu_torch.ops import _build  # noqa: E402
+
+TENSOR_CORE_KERNELS = ("flash_dq_kernel", "flash_dkv_kernel")
+
+
+def main() -> int:
+    library = _build.build()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], check=True,
+                          capture_output=True, text=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    name = None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            # mangled: ...<length><name>ILi<head dim>E...
+            short = re.search(r"(?<![a-z])([a-z]+(?:_[a-z]+)*_kernel)"
+                              r"(?:ILi(\d+)E)?", found.group(1))
+            name = found.group(1)
+            if short:
+                name = short.group(1) + (f"<{short.group(2)}>"
+                                         if short.group(2) else "")
+            counts[name] = {"HGMMA": 0, "HMMA": 0}
+            continue
+        for op in ("HGMMA", "HMMA"):
+            if name and re.search(rf"\b{op}\.", line):
+                counts[name][op] += 1
+    missing = [n for n, c in counts.items()
+               if any(k in n for k in TENSOR_CORE_KERNELS)
+               and c["HGMMA"] + c["HMMA"] == 0]
+    print(json.dumps({"kernels": counts, "without_tensor_cores": missing},
+                     indent=1))
+    return 1 if missing or not counts else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,7 +15,10 @@ one ulp of the final rounding plus rounding at a different point inside
 (softmax weights rounded to bf16 at a different normalisation); the
 backward kernels' dq, dk and dv the same (p and ds round to bf16 at the
 same points in kernel and twin, the sums run in another order); lse is
-f32. Greedy tokens are compared exactly; gradients through the kernels
+f32. A row's RMS is floored at ``ROW_RMS_FLOOR`` of the output's RMS: a
+row whose exact value is zero (dq of a row with one live key, where p = 1
+and dp = delta cancel) is f32 residue of ~1e-7 in kernel and twin alike,
+different for each summation order, and is held at the output's scale. Greedy tokens are compared exactly; gradients through the kernels
 against autograd through the f32 plain attention are held in relative
 norm per tensor at ``TOL_GRAD_NORM`` (below).
 """
@@ -28,6 +31,7 @@ import torch
 pytestmark = pytest.mark.cuda
 
 TOL_F32, TOL_BF16 = (1e-5, 1e-4), (2.0 ** -7, 2.0 ** -5)
+ROW_RMS_FLOOR = 2.0 ** -8
 # bf16 kernels vs f32 autograd: the kernel path rounds o, p and ds to
 # bf16, and delta = rowsum(dO * O) from a bf16 O meets dp in dp - delta,
 # where the two nearly cancel; so single elements can be off by far more
@@ -53,7 +57,9 @@ def _assert_close(out, ref, tol):
     rtol, atol = tol
     o, r = out.float(), ref.float()
     diff = (o - r).abs()
-    limit = rtol * r.abs() + atol * r.pow(2).mean(-1, keepdim=True).sqrt()
+    rms = torch.maximum(r.pow(2).mean(-1, keepdim=True).sqrt(),
+                        ROW_RMS_FLOOR * r.pow(2).mean().sqrt())
+    limit = rtol * r.abs() + atol * rms
     bad = ~(diff <= limit)   # NaN fails too
     assert not bad.any(), (
         f"{int(bad.sum())} elements outside rtol {rtol} + atol {atol} x row "
@@ -147,26 +153,41 @@ def test_flash_kernel_matches_twin(card, causal, window, segmented, sq):
                                      segment_ids=seg), TOL_BF16)
 
 
-# (causal, window, segmented, heads, kv_heads, seq, head_dim)
+# (causal, window, segments, heads, kv_heads, sq, sk, head_dim). segments:
+# False, True (random sorted ids), or the positions where a new document
+# starts. Every head dim the kernels are built for appears, each on a
+# ragged length (not a multiple of the 64-row tile).
 BACKWARD_CASES = {
-    "causal": (True, None, False, 4, 4, 256, 64),
-    "gqa": (True, None, False, 8, 2, 320, 128),
-    "window": (True, 48, False, 4, 2, 256, 64),
-    "segments": (True, None, True, 4, 2, 288, 64),
-    "non_causal": (False, None, False, 4, 2, 200, 64),
-    "ragged_window": (True, 256, False, 2, 2, 1000, 128),
+    "causal": (True, None, False, 4, 4, 256, 256, 64),
+    "gqa": (True, None, False, 8, 2, 320, 320, 128),
+    "window": (True, 48, False, 4, 2, 256, 256, 64),
+    "segments": (True, None, True, 4, 2, 288, 288, 64),
+    "non_causal": (False, None, False, 4, 2, 200, 200, 64),
+    "ragged_window": (True, 256, False, 2, 2, 1000, 1000, 128),
+    "head_dim_16": (True, None, False, 4, 2, 200, 200, 16),
+    "head_dim_32": (True, 40, False, 2, 1, 130, 130, 32),
+    "head_dim_256": (True, None, False, 4, 2, 160, 160, 256),
+    "head_dim_256_mha": (False, None, False, 2, 2, 100, 100, 256),
+    "non_causal_sq_ne_sk": (False, None, False, 4, 2, 200, 333, 64),
+    "segments_mid_tile": (True, None, (37, 100, 170, 230), 4, 2, 288, 288,
+                          128),
 }
 
 
-def _backward_inputs(gen, case):
-    causal, window, segmented, h, hkv, s, d = BACKWARD_CASES[case]
-    q = _randn(gen, 2, h, s, d)
-    k, v = _randn(gen, 2, hkv, s, d), _randn(gen, 2, hkv, s, d)
-    do = _randn(gen, 2, h, s, d)
+def _backward_inputs(gen, case, cases=BACKWARD_CASES):
+    causal, window, segments, h, hkv, sq, sk, d = cases[case]
+    q = _randn(gen, 2, h, sq, d)
+    k, v = _randn(gen, 2, hkv, sk, d), _randn(gen, 2, hkv, sk, d)
+    do = _randn(gen, 2, h, sq, d)
     seg = None
-    if segmented:
-        seg = torch.sort(torch.randint(0, 4, (2, s), device="cuda",
+    if segments is True:
+        seg = torch.sort(torch.randint(0, 4, (2, sq), device="cuda",
                                        generator=gen), dim=1).values
+    elif segments:
+        starts = torch.tensor(segments, device="cuda")
+        ids = torch.searchsorted(starts, torch.arange(sq, device="cuda"),
+                                 right=True)
+        seg = ids.to(torch.int32)[None].repeat(2, 1)
     return q, k, v, do, dict(causal=causal, window=window, segment_ids=seg)
 
 
@@ -212,9 +233,42 @@ def test_flash_backward_kernels_match_twins(card, case):
     _assert_close(dv, dv_ref, TOL_BF16)
 
 
+# Sq > Sk under a window: rows from Sk - 1 + window on see no key.
+NO_LIVE_KEY_CASE = {"window_sq_gt_sk": (True, 64, False, 4, 2, 300, 130, 128)}
+
+
+def test_flash_backward_rows_without_live_keys_get_zero_gradient(card):
+    """Rows with no live key get exactly zero dq (p is masked, not left to
+    underflow), and every output still matches its twin."""
+    from kubeflow_tpu_torch.ops.attention import (
+        flash_dkv,
+        flash_dkv_reference,
+        flash_dq,
+        flash_dq_reference,
+        flash_forward_reference,
+    )
+
+    q, k, v, do, kw = _backward_inputs(card, "window_sq_gt_sk",
+                                       NO_LIVE_KEY_CASE)
+    o, lse = flash_forward_reference(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta)
+    dq = flash_dq(*args, **kw)
+    dk, dv = flash_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    first_dead = k.shape[2] - 1 + kw["window"]
+    assert first_dead < q.shape[2]
+    assert torch.count_nonzero(dq[:, :, first_dead:]) == 0
+    assert torch.count_nonzero(dq[:, :, :first_dead]) > 0
+    _assert_close(dq, flash_dq_reference(*args, **kw), TOL_BF16)
+    dk_ref, dv_ref = flash_dkv_reference(*args, **kw)
+    _assert_close(dk, dk_ref, TOL_BF16)
+    _assert_close(dv, dv_ref, TOL_BF16)
+
+
 def test_flash_backward_kernels_are_deterministic(card):
-    """No atomics: every output element is summed by one thread in one
-    order, so two launches give the same bits."""
+    """No atomics: every output element is owned by one block and summed
+    in one fixed order, so two launches give the same bits."""
     from kubeflow_tpu_torch.ops.attention import (
         flash_dkv,
         flash_dq,
