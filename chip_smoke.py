@@ -13,8 +13,10 @@ Phases (a failed phase raises; nothing is caught):
    the card, at the flagship's own shapes (8 layers, dim 1024, 8 heads,
    2 kv heads, vocab 32768, bf16) and, for the flash forward with lse and
    the two backward kernels, at the training shape (batch 4, 8 heads,
-   S=2048, head dim 128) and four more masks, element by element within
-   the stated tolerance (see ``check_close``); kernel, twin and
+   S=2048, head dim 128) and four more masks (SDPA's forward and backward
+   as the library calls), element by element within the stated tolerance
+   (see ``check_close``); two launches of the GEMV must give equal bits
+   (tied head, down projection); kernel, twin and
    library-call times (CUDA events, median of repeated launches, L2
    flushed before each) beside the least time the card could take (bytes
    over 3.35 TB/s or operations over 989 TFLOP/s).
@@ -227,6 +229,14 @@ def kernel_phase(torch, timer):
         out = gemv(x, w, scale, res, transpose_w=transpose)
         torch.cuda.synchronize()
         ref = gemv_reference(x, w, scale, res, transpose_w=transpose)
+        extra = {}
+        if name in ("tied_head", "down_residual"):
+            # No atomics: the K slices meet in a fixed order.
+            again = gemv(x, w, scale, res, transpose_w=transpose)
+            torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                _fail(f"gemv[{name}]: two launches gave different bits")
+            extra["bitwise_deterministic"] = True
         wmat = w.t() if transpose else w
         library = (None if int8 else (lambda x=x, wmat=wmat:
                                       torch.matmul(x, wmat)))
@@ -237,7 +247,7 @@ def kernel_phase(torch, timer):
                lambda: gemv(x, w, scale, res, transpose_w=transpose),
                lambda: gemv_reference(x, w, scale, res,
                                       transpose_w=transpose),
-               library, nbytes, 2 * r * k * n)
+               library, nbytes, 2 * r * k * n, **extra)
 
     # ---- qkv_rope: (8, 1024) @ (1024, 1536), 10 rope heads, mixed
     # positions; plus a ragged width (N/2 not a multiple of the block's
@@ -393,15 +403,41 @@ def live_pairs(torch, b, s, window, seg):
     return int((keep[None] & same).sum())
 
 
+def sdpa_mask(torch, s, window, seg):
+    """The boolean mask SDPA takes for a causal band and document ids,
+    (1 or B, 1, S, S); None for plain causal (SDPA's ``is_causal``)."""
+    if window is None and seg is None:
+        return None
+    idx = torch.arange(s, device="cuda")
+    mask = idx[None, :] <= idx[:, None]
+    if window is not None:
+        mask &= idx[None, :] > idx[:, None] - window
+    mask = mask[None, None]
+    if seg is not None:
+        mask = mask & (seg[:, None, :, None] == seg[:, None, None, :])
+    return mask
+
+
+def sdpa(F, q, k, v, mask):
+    """One SDPA forward call, causal through ``is_causal`` or ``mask``."""
+    if mask is None:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          enable_gqa=True)
+
+
 def train_attention_cases(torch, randn, record):
-    """The flash forward with lse (training shape) and the dq / dk-dv
-    kernels against their twins on every case of TRAIN_ATTN_CASES; SDPA's
-    backward (dq+dk+dv together, forward excluded) as the library call."""
+    """The flash forward with lse and the dq / dk-dv kernels against their
+    twins on every case of TRAIN_ATTN_CASES; SDPA's forward, and its
+    backward (dq+dk+dv together, forward excluded), as the library
+    calls."""
     import torch.nn.functional as F
 
     from kubeflow_tpu_torch.ops.attention import (
         _dkv,
         _dq,
+        _forward,
         flash_dkv,
         flash_dkv_reference,
         flash_dq,
@@ -418,24 +454,23 @@ def train_attention_cases(torch, randn, record):
         seg = packed_segments(torch, b, s, gen) if segmented else None
         kw = dict(causal=True, window=window, segment_ids=seg)
         pairs = live_pairs(torch, b, s, window, seg) * h
-        if name == "train_causal":
-            out = flash_forward(q, k, v, **kw)
-            torch.cuda.synchronize()
-            record("flash_attention", "train_lse", out,
-                   flash_forward_reference(q, k, v, **kw),
-                   (TOL_BF16, TOL_F32),
-                   lambda: flash_forward(q, k, v, **kw),
-                   lambda: flash_forward_reference(q, k, v, **kw),
-                   lambda: F.scaled_dot_product_attention(
-                       q, k, v, is_causal=True, enable_gqa=True),
-                   q.numel() * 2 * 2 + k.numel() * 4 + b * h * s * 4,
-                   4 * d * pairs, iters=10)
-        o, lse = flash_forward_reference(q, k, v, **kw)
-        delta = (do.float() * o.float()).sum(-1)
-        args = (q, k, v, do, lse, delta)
         # Timed past the public entries' segment-order check, a host sync
         # the train step makes once per batch, not once per launch.
         mask = (True, window, seg, d ** -0.5)
+        out = flash_forward(q, k, v, **kw)
+        torch.cuda.synchronize()
+        o, lse = flash_forward_reference(q, k, v, **kw)
+        sdpa_in = sdpa_mask(torch, s, window, seg)
+        record("flash_attention",
+               "train_lse" if name == "train_causal" else f"{name}_lse",
+               out, (o, lse), (TOL_BF16, TOL_F32),
+               lambda: _forward(q, k, v, *mask, with_lse=True),
+               lambda: flash_forward_reference(q, k, v, **kw),
+               lambda: sdpa(F, q, k, v, sdpa_in),
+               q.numel() * 2 * 2 + k.numel() * 4 + b * h * s * 4,
+               4 * d * pairs, iters=10)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta)
         library = sdpa_backward(torch, F, q, k, v, do, window, seg)
         row_bytes = b * h * s * 4 * 2     # lse and delta
         in_bytes = (q.numel() * 2 * 2 + k.numel() * 2 * 2 + row_bytes)
@@ -459,20 +494,7 @@ def sdpa_backward(torch, F, q, k, v, do, window, seg):
     """A function that runs SDPA's backward for (q, k, v) on a forward
     taken once here: one PyTorch call computing dq, dk and dv."""
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-    if window is None and seg is None:
-        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                             enable_gqa=True)
-    else:
-        s = q.shape[2]
-        idx = torch.arange(s, device="cuda")
-        mask = idx[None, :] <= idx[:, None]
-        if window is not None:
-            mask &= idx[None, :] > idx[:, None] - window
-        mask = mask[None, None]
-        if seg is not None:
-            mask = mask & (seg[:, None, :, None] == seg[:, None, None, :])
-        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
-                                             enable_gqa=True)
+    out = sdpa(F, *leaves, sdpa_mask(torch, q.shape[2], window, seg))
     return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
 
 

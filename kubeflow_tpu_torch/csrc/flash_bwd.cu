@@ -59,119 +59,23 @@
 // atomics: each output element is owned by one block and summed in one
 // fixed order, so two launches give the same bits. Blocks start heaviest
 // first (the causal band's longest rows or keys) to shorten the tail.
-#include "wgmma.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;     // one warpgroup
-constexpr int kTile = kTileRows;  // query rows and keys per tile
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <int D>
-struct Shape {
-  static constexpr int kPad = D < 64 ? 64 : D;           // columns in smem
-  static constexpr int kCols = kPad > 128 ? 128 : kPad;  // per output pass
-  static constexpr int kPasses = kPad / kCols;
-  static constexpr int kSteps = D / 16;  // k steps of the score products
-  static constexpr uint32_t kTileBytes = kTile * kPad * 2;
-};
-
-// 2^x on the special-function unit (ex2.approx, relative error ~2^-22;
-// subnormal results flush to 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ bool pair_live(int row, int col, int Sq, int Sk,
-                                          int causal, int window,
-                                          const int* segb) {
-  bool keep = row < Sq && col < Sk;
-  if (causal) {
-    keep = keep && row >= col;
-    if (window > 0) keep = keep && col > row - window;
-  }
-  if (keep && segb != nullptr) keep = segb[row] == segb[col];
-  return keep;
-}
-
-// True when every pair of rows [q0, q0 + 64) x keys [k0, k0 + 64) is live:
-// the tile needs no per-pair mask.
-__device__ __forceinline__ bool tile_full(int q0, int k0, int Sq, int Sk,
-                                          int causal, int window,
-                                          const int* segb) {
-  if (q0 + kTile > Sq || k0 + kTile > Sk) return false;
-  if (causal) {
-    if (q0 < k0 + kTile - 1) return false;
-    if (window > 0 && k0 <= q0 + kTile - 1 - window) return false;
-  }
-  if (segb != nullptr) {
-    const int id = segb[q0];
-    if (segb[q0 + kTile - 1] != id || segb[k0] != id ||
-        segb[k0 + kTile - 1] != id)
-      return false;
-  }
-  return true;
-}
-
-// The reference's segment skip: ids are non-decreasing, so the two tiles
-// share a document only if their id ranges overlap.
-__device__ __forceinline__ bool segments_meet(const int* segb, int q0, int k0,
-                                              int Sq, int Sk) {
-  if (segb == nullptr) return true;
-  return segb[q0] <= segb[min(k0 + kTile, Sk) - 1] &&
-         segb[k0] <= segb[min(q0 + kTile, Sq) - 1];
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (N == 128)
-    wgmma_rs_m64n128_tb(d, a, b);
-  else
-    wgmma_rs_m64n64_tb(d, a, b);
-}
-
-// The two score products of a tile, x = A_x B_x^T over D: both operands
-// K-major 64-row tiles in shared memory; waits for both.
+// The two score products of a tile, x = A_x B_x^T and y = A_y B_y^T over
+// D: both operands K-major 64-row tiles in shared memory; waits for both.
 template <int D>
 __device__ __forceinline__ void score_products(float (&x)[32], float (&y)[32],
                                                uint32_t ax, uint32_t bx,
                                                uint32_t ay, uint32_t by) {
   wgmma_fence();
-  wgmma_ss_m64n64_first(x, desc_kmajor(ax, 0), desc_kmajor(bx, 0));
-#pragma unroll
-  for (int kk = 1; kk < Shape<D>::kSteps; ++kk)
-    wgmma_ss_m64n64(x, desc_kmajor(ax, kk), desc_kmajor(bx, kk));
-  wgmma_ss_m64n64_first(y, desc_kmajor(ay, 0), desc_kmajor(by, 0));
-#pragma unroll
-  for (int kk = 1; kk < Shape<D>::kSteps; ++kk)
-    wgmma_ss_m64n64(y, desc_kmajor(ay, kk), desc_kmajor(by, kk));
+  issue_scores<D>(x, ax, bx);
+  issue_scores<D>(y, ay, by);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(x);
   fence_regs(y);
-}
-
-// Rows `lo` and `lo + 8` of a 64 x N accumulator, columns [c0, c0 + N),
-// to a row-major (rows, D) bf16 matrix; rows at or past `rows` and
-// columns at or past D are not written.
-template <int D, int N>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[N / 2],
-                                           int lo, int rows, int c0,
-                                           int lane) {
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    const int col = c0 + 8 * j + 2 * (lane % 4);
-    if (col >= D) continue;
-    if (lo < rows)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)lo * D + col) =
-          __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
-    if (lo + 8 < rows)
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(lo + 8) * D + col) =
-          __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
-  }
 }
 
 template <int D>
@@ -224,13 +128,8 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float dl_hi = r_hi < Sq ? delta_b[r_hi] : 0.f;
   const float scale_log2 = scale * kLog2e;
 
-  int k_begin = 0;
-  int k_end = Sk;
-  if (causal) {
-    k_end = min(Sk, q0 + kTile);
-    if (window > 0) k_begin = max(0, q0 - window + 1);
-  }
-  k_begin = (k_begin / kTile) * kTile;
+  int k_begin, k_end;
+  key_range(q0, Sk, causal, window, k_begin, k_end);
   auto next_live = [&](int k0) {  // the first live key tile at or past k0
     while (k0 < k_end && !segments_meet(segb, q0, k0, Sq, Sk)) k0 += kTile;
     return k0;

@@ -1,201 +1,297 @@
-// Flash-attention forward: tiled online-softmax attention with GQA.
+// Flash-attention forward on Hopper's tensor cores: tiled online-softmax
+// attention with GQA, and the per-row logsumexp the backward reads.
 //
 // Replaces the Pallas kernel kubeflow_tpu/ops/attention.py `_flash_kernel`
 // (driven by `_flash_forward` / `flash_attention`). q (B, H, Sq, D),
 // k/v (B, Hkv, Sk, D) bf16; q head h reads kv head h / (H / Hkv) with no
 // repetition. Causal with an optional window band, or non-causal; an
 // optional segment-id document mask (ids non-decreasing along the
-// sequence, self-attention). Scores, m, l and the accumulator are f32;
-// p is rounded to bf16 before the PV product (the reference's
-// `p.astype(v.dtype)`). A row no live tile touches emits 0, not NaN.
-// With a non-null `lse` the kernel also writes each row's logsumexp
-// m + log(l_safe), (B, H, Sq) f32, which the backward (flash_bwd.cu)
-// recomputes p from; l_safe is l, or 1 for a row no live tile touched,
-// whose lse is then -1e30. Inference passes null and stores nothing.
+// sequence, self-attention). Per live (row, key) pair:
+//   s = (q . k, f32 accumulation) * scale
+// with the row max m and sum l of p = exp(s - m) kept online in f32, and
+// o = sum bf16(p) v / l (p rounded to bf16 before the PV product, the
+// reference's `p.astype(v.dtype)`). p is 0, set explicitly, on a masked
+// pair, so a row with no live key (Sq > Sk under a window) gets l = 0,
+// o = 0 and lse = -1e30 however the tiles fall. With a non-null `lse` the
+// kernel also writes each row's m + log(l), (B, H, Sq) f32, in the
+// natural log the backward (flash_bwd.cu) recomputes p from; inference
+// passes null and stores nothing.
 //
-// Bound on the H100: operations. At the flagship's prefill (S=1024,
-// D=128) a tile does ~D multiply-adds per byte it loads, far above the
-// card's ridge, so the score and PV products bound it.
+// Bound on the H100: operations. 4*D flops per live pair (the score and
+// PV products) on 64 x 64 tiles that load 2 x 64 x D bf16: at D=128 some
+// 64 flops per byte loaded, each K/V byte coming from L2 for all but its
+// first reader.
 //
-// Design, simple first: plain f32 FMA on the CUDA cores, no tensor
-// cores yet (mma/wgmma are later work; PERF.md has the measured gap).
-// A block of 256 threads owns 32 query rows of one (batch, head) and
-// walks 64-key tiles of K and V staged in shared memory (about 58 KB at
-// D=128, well under the 227 KB a block may use). Each query row belongs
-// to 8 threads of one warp: they share the row's softmax state in
-// registers, compute 8 of the tile's 64 scores each, and own D/8 of the
-// row's accumulator columns, so the row max and sum need only three
-// shuffles and no block barrier. Tiles wholly outside the causal band,
-// or whose segment-id range is disjoint from the query tile's, are
-// skipped, exactly as the reference skips dead blocks.
-#include "common.cuh"
+// Design: the dq pass of flash_bwd.cu without dP, plus the online
+// softmax, with the PV product of one tile running under the softmax of
+// the next. A block is one warpgroup (128 threads) that owns 64 query
+// rows of one (batch, head); Q is loaded once into 128-byte-swizzled
+// shared memory, bf16 as stored. The block walks the live 64-key tiles
+// with cp.async copies one tile ahead: K through a two-stage ring, V
+// through a three-stage one (V of tile j-1 is still read while tile j+1
+// lands). Per tile j:
+//  * S_j = Q K_j^T, a wgmma with both operands K-major in shared memory,
+//    issued together with O += bf16(P_{j-1}) V_{j-1} (P as the register
+//    A operand: the accumulator layout is the A layout; V read MN-major
+//    through the transpose bit); the block waits for S_j only;
+//  * the mask, only on tiles that the band, a segment boundary or a
+//    sequence end cuts (`tile_full`);
+//  * the row max in the accumulator layout, four lanes to a row (two quad
+//    shuffles, no shared memory), p = 2^(s * scale * log2e - m) on the
+//    special-function unit; each thread keeps its share of the row sum
+//    and the quad sums it once, in the epilogue;
+//  * then it waits for the PV product, rescales O by 2^(m_old - m_new)
+//    in registers and packs P_j for the next tile's product.
+// The epilogue issues the last PV product and writes o = O / l in bf16
+// and, on request, the lse. The operands of a product in flight are
+// pinned (`fence_regs`) until its wait, so the compiler neither reads
+// the accumulator early nor reuses the P registers.
+// Head dims: D < 64 is padded to one 64-column block in shared memory
+// (the padding never reaches a stored column). At D=256 the output
+// columns are split into two passes of 128, as in the backward: each pass
+// walks the tiles again and recomputes S, m and l (the same values, in
+// the same order), so D=256 does the score product twice. Tiles outside
+// the causal band or with disjoint segment-id ranges are skipped with the
+// reference's predicates; blocks start heaviest first (the causal band's
+// longest rows) to shorten the tail.
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBQ = 32;
-constexpr int kBK = 64;
-constexpr int kThreads = 256;
+constexpr int kStagesK = 2;
+constexpr int kStagesV = 3;
 
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBQ * (D + 1) + kBQ * (kBK + 1)) +
-         sizeof(bf16) * (kBK * (D + 2) + kBK * D);
+constexpr size_t fwd_smem_bytes() {
+  // Q and the K and V rings; 1 KB to align the tiles.
+  return (1 + kStagesK + kStagesV) * Shape<D>::kTileBytes + 1024;
+}
+
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// O += bf16(P) V over one 64-key tile: four k steps of 16 keys.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[Shape<D>::kCols / 2],
+                                         const uint32_t (&frag)[4][4],
+                                         uint32_t sv, int pass) {
+  using Sh = Shape<D>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<Sh::kCols>(
+        acc, frag[kk],
+        desc_mnmajor<Sh::kCols>(sv, pass * Sh::kCols / 64, kk));
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const int* __restrict__ seg,
-                 bf16* __restrict__ out, float* __restrict__ lse, int H,
-                 int Hkv, int Sq, int Sk, int causal, int window,
+                 bf16* __restrict__ out, float* __restrict__ lse, int B,
+                 int H, int Hkv, int Sq, int Sk, int causal, int window,
                  float scale) {
-  constexpr int QS = D + 1;    // f32 row stride (padded: no bank conflicts)
-  constexpr int KS = D + 2;    // bf16 row stride (padded)
-  constexpr int PS = kBK + 1;  // f32 row stride of the p tile
-  constexpr int DJ = D / 8;    // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* sq = smem;
-  float* sp = sq + kBQ * QS;
-  bf16* sk = reinterpret_cast<bf16*>(sp + kBQ * PS);
-  bf16* sv = sk + kBK * KS;
+  using Sh = Shape<D>;
+  constexpr uint32_t TB = Sh::kTileBytes;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t sq = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t ring_k = sq + TB;                // stage s at + s*TB
+  const uint32_t ring_v = ring_k + kStagesK * TB;
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int bhs = B * H;
+  const int bh = blockIdx.x % bhs;
+  const int qt = blockIdx.x / bhs;
+  const int nq = (Sq + kTile - 1) / kTile;
+  const int q0 = (causal ? nq - 1 - qt : qt) * kTile;
   const int b = bh / H;
-  const int h = bh % H;
-  const int kvh = h / (H / Hkv);
-  const int q0 = blockIdx.x * kBQ;
-  const bf16* qb = q + (size_t)bh * Sq * D;
+  const int kvh = (bh % H) / (H / Hkv);
   const bf16* kb = k + (size_t)(b * Hkv + kvh) * Sk * D;
   const bf16* vb = v + (size_t)(b * Hkv + kvh) * Sk * D;
   const int* segb = seg != nullptr ? seg + (size_t)b * Sq : nullptr;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i % D;
-    sq[r * QS + d] = (q0 + r < Sq) ? to_f32(qb[(size_t)(q0 + r) * D + d]) : 0.f;
-  }
+  load_rows<D, kThreads>(sq, q + (size_t)bh * Sq * D, q0, Sq, tid);
 
-  const int tr = tid / 8;  // query row within the tile
-  const int tc = tid % 8;  // this thread's slice of the row
-  const int row = q0 + tr;
-  float m = KFT_NEG_INF;
-  float l = 0.f;
-  float acc[DJ];
+  // This thread's two accumulator rows.
+  const int r_lo = q0 + 16 * warp + lane / 4;
+  const int r_hi = r_lo + 8;
+  const float scale_log2 = scale * kLog2e;
+
+  int k_begin, k_end;
+  key_range(q0, Sk, causal, window, k_begin, k_end);
+  auto next_live = [&](int k0) {  // the first live key tile at or past k0
+    while (k0 < k_end && !segments_meet(segb, q0, k0, Sq, Sk)) k0 += kTile;
+    return k0;
+  };
+  const int first = next_live(k_begin);
+  // The t-th live tile lands in K stage t % 2 and V stage t % 3.
+  auto load_kv = [&](int k0, int t) {
+    load_rows<D, kThreads>(ring_k + (t % kStagesK) * TB, kb, k0, Sk, tid);
+    load_rows<D, kThreads>(ring_v + (t % kStagesV) * TB, vb, k0, Sk, tid);
+  };
+
+  float s[32];
+  uint32_t frag[4][4];
+#pragma unroll 1
+  for (int pass = 0; pass < Sh::kPasses; ++pass) {
+    float acc[Sh::kCols / 2];
 #pragma unroll
-  for (int j = 0; j < DJ; ++j) acc[j] = 0.f;
+    for (int i = 0; i < Sh::kCols / 2; ++i) acc[i] = 0.f;
+    // Running max (of s * scale * log2e) and this thread's share of the
+    // running sum, for rows r_lo and r_hi.
+    float m_lo = KFT_NEG_INF, m_hi = KFT_NEG_INF;
+    float l_lo = 0.f, l_hi = 0.f;
+    int k0 = first;
+    int t = 0;
+    uint32_t sv_prev = 0;  // V of the tile whose P waits in `frag`
+    if (k0 < k_end) load_kv(k0, 0);
+    cp_async_commit();
+    while (k0 < k_end) {
+      const int k_next = next_live(k0 + kTile);
+      if (k_next < k_end) load_kv(k_next, t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this tile (and Q) landed
+      fence_proxy_async();
+      __syncthreads();
 
-  int k_begin = 0;
-  int k_end = Sk;
-  if (causal) {
-    k_end = min(Sk, q0 + kBQ);
-    if (window > 0) k_begin = max(0, q0 - window + 1);
-  }
-  k_begin = (k_begin / kBK) * kBK;
-  int seg_qlo = 0, seg_qhi = 0;
-  if (segb != nullptr) {
-    seg_qlo = segb[q0];
-    seg_qhi = segb[min(q0 + kBQ, Sq) - 1];
-  }
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    if (segb != nullptr) {
-      const int klo = segb[k0];
-      const int khi = segb[min(k0 + kBK, Sk) - 1];
-      if (seg_qlo > khi || klo > seg_qhi) continue;  // uniform per block
-    }
-    __syncthreads();  // everyone is done reading the previous tile
-    for (int i = tid; i < kBK * D / 2; i += kThreads) {
-      const int c = (2 * i) / D;
-      const int d = (2 * i) % D;
-      __nv_bfloat162 kv2, vv2;
-      if (k0 + c < Sk) {
-        kv2 = *reinterpret_cast<const __nv_bfloat162*>(kb + (size_t)(k0 + c) * D + d);
-        vv2 = *reinterpret_cast<const __nv_bfloat162*>(vb + (size_t)(k0 + c) * D + d);
+      wgmma_fence();
+      issue_scores<D>(s, sq, ring_k + (t % kStagesK) * TB);
+      wgmma_commit();
+      if (t > 0) {
+        issue_pv<D>(acc, frag, sv_prev, pass);
+        wgmma_commit();
+        wgmma_wait<1>();  // S only: the PV product runs on
       } else {
-        kv2 = __floats2bfloat162_rn(0.f, 0.f);
-        vv2 = kv2;
+        wgmma_wait<0>();
       }
-      *reinterpret_cast<__nv_bfloat162*>(sk + c * KS + d) = kv2;
-      *reinterpret_cast<__nv_bfloat162*>(sv + c * D + d) = vv2;
-    }
-    __syncthreads();
+      fence_regs(s);
 
-    float s[8];
-    float mx = KFT_NEG_INF;
+      // The mask runs only on a tile the band, a segment boundary or a
+      // sequence end cuts: a branch per tile, not a predicate per pair.
+      uint32_t dead = 0;  // bit i: pair i of this thread is masked
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = tc + 8 * j;
-      const float* qrow = sq + tr * QS;
-      const bf16* krow = sk + c * KS;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) dot = fmaf(qrow[d], to_f32(krow[d]), dot);
-      float sc = dot * scale;
-      const int col = k0 + c;
-      bool keep = col < Sk;
-      if (causal) {
-        keep = keep && row >= col;
-        if (window > 0) keep = keep && col > row - window;
+      for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
+      if (!tile_full(q0, k0, Sq, Sk, causal, window, segb)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int row = (i & 2) ? r_hi : r_lo;
+          const int col = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
+          if (!pair_live(row, col, Sq, Sk, causal, window, segb))
+            dead |= 1u << i;
+        }
       }
-      if (keep && segb != nullptr) keep = row < Sq && segb[row] == segb[col];
-      if (!keep) sc = KFT_NEG_INF;
-      s[j] = sc;
-      mx = fmaxf(mx, sc);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
+      float mx_lo = KFT_NEG_INF, mx_hi = KFT_NEG_INF;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float pr = expf(s[j] - m_new);
-      psum += pr;
-      sp[tr * PS + tc + 8 * j] = round_bf16(pr);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 4);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = alpha * l + psum;
-    m = m_new;
-    __syncwarp();  // the row's p values come from this warp only
+      for (int i = 0; i < 32; ++i) {
+        const float x = (dead >> i) & 1u ? KFT_NEG_INF : s[i];
+        if (i & 2)
+          mx_hi = fmaxf(mx_hi, x);
+        else
+          mx_lo = fmaxf(mx_lo, x);
+      }
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+      const float new_lo = fmaxf(m_lo, mx_lo);
+      const float new_hi = fmaxf(m_hi, mx_hi);
+      // 1 while a row has seen no live key (both maxima are -1e30), 0
+      // when its first live key arrives (the sums so far are 0 anyway).
+      const float alpha_lo = exp2_approx(m_lo - new_lo);
+      const float alpha_hi = exp2_approx(m_hi - new_hi);
+      m_lo = new_lo;
+      m_hi = new_hi;
+      float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const bool hi = (i & 2) != 0;
+        float p = exp2_approx(s[i] - (hi ? m_hi : m_lo));
+        if ((dead >> i) & 1u) p = 0.f;
+        s[i] = p;
+        if (hi)
+          sum_hi += p;
+        else
+          sum_lo += p;
+      }
+      l_lo = l_lo * alpha_lo + sum_lo;
+      l_hi = l_hi * alpha_hi + sum_hi;
 
-    const float* prow = sp + tr * PS;
+      if (t > 0) {
+        wgmma_wait<0>();  // the previous tile's PV product
+        fence_frags(frag);
+      }
+      fence_regs(acc);
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tc + 8 * j;
-      float a = acc[j] * alpha;
-#pragma unroll 16
-      for (int c = 0; c < kBK; ++c) a = fmaf(prow[c], to_f32(sv[c * D + d]), a);
-      acc[j] = a;
+      for (int j = 0; j < Sh::kCols / 8; ++j) {
+        acc[4 * j] *= alpha_lo;
+        acc[4 * j + 1] *= alpha_lo;
+        acc[4 * j + 2] *= alpha_hi;
+        acc[4 * j + 3] *= alpha_hi;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) a_fragment(frag[kk], s, kk);
+      sv_prev = ring_v + (t % kStagesV) * TB;
+      __syncthreads();  // everyone is done with the stages reloaded next
+      k0 = k_next;
+      ++t;
     }
-  }
-
-  if (row < Sq) {
-    const float l_safe = l == 0.f ? 1.f : l;
-    bf16* orow = out + ((size_t)bh * Sq + row) * D;
+    if (t > 0) {  // the last tile's PV product
+      wgmma_fence();
+      issue_pv<D>(acc, frag, sv_prev, pass);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_frags(frag);
+      fence_regs(acc);
+    }
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+    // A row with no live key has l = 0 and acc = 0: it stores 0.
+    const float ls_lo = l_lo == 0.f ? 1.f : l_lo;
+    const float ls_hi = l_hi == 0.f ? 1.f : l_hi;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) orow[tc + 8 * j] = __float2bfloat16(acc[j] / l_safe);
-    if (lse != nullptr && tc == 0) lse[(size_t)bh * Sq + row] = m + logf(l_safe);
+    for (int j = 0; j < Sh::kCols / 8; ++j) {
+      acc[4 * j] /= ls_lo;
+      acc[4 * j + 1] /= ls_lo;
+      acc[4 * j + 2] /= ls_hi;
+      acc[4 * j + 3] /= ls_hi;
+    }
+    store_rows<D, Sh::kCols>(out + (size_t)bh * Sq * D, acc, r_lo, Sq,
+                             pass * Sh::kCols, lane);
+    if (pass == 0 && lse != nullptr && lane % 4 == 0) {
+      float* lse_b = lse + (size_t)bh * Sq;
+      if (r_lo < Sq)
+        lse_b[r_lo] = l_lo == 0.f ? KFT_NEG_INF : m_lo / kLog2e + logf(l_lo);
+      if (r_hi < Sq)
+        lse_b[r_hi] = l_hi == 0.f ? KFT_NEG_INF : m_hi / kLog2e + logf(l_hi);
+    }
+    __syncthreads();  // the next pass reloads the rings from stage 0
   }
+  cp_async_wait<0>();
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* seg,
            void* out, void* lse, int B, int H, int Hkv, int Sq, int Sk,
            int causal, int window, float scale, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<D>();
+  const size_t bytes = fwd_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  const int blocks = (Sq + kTile - 1) / kTile * B * H;
+  if (blocks == 0) return 0;
+  flash_fwd_kernel<D><<<blocks, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(seg),
-      static_cast<bf16*>(out), static_cast<float*>(lse), H, Hkv, Sq, Sk,
+      static_cast<bf16*>(out), static_cast<float*>(lse), B, H, Hkv, Sq, Sk,
       causal, window, scale);
   return (int)cudaGetLastError();
 }

@@ -9,41 +9,67 @@
 // Bound on the H100: bytes. At decode every weight element is read once
 // and used R <= 8 times, so the kernel is a pure stream of the weight
 // matrix (K * N * itemsize bytes) against ~3.35 TB/s; the activations,
-// scales and outputs are a rounding error beside it.
+// scales and outputs are a rounding error beside it. Streaming at that
+// rate needs tens of KB of loads in flight on every one of the 132 SMs.
 //
 // Design against that bound:
-// - (K, N) layout: a block owns 64 output columns and its 8 warps split
-//   the K rows between them; each lane reads two neighbouring columns,
-//   so a warp reads one contiguous 128-byte line per K row (bf16). The
-//   eight partial sums meet in shared memory. The grid is N / 64 blocks.
+// - Every lane loads 16 bytes of a weight row at a time (8 bf16 or 16
+//   int8 columns), neighbouring lanes on neighbouring addresses, with all
+//   of a step's loads issued before the first is used. The activations
+//   are staged once per block in shared memory (f32 for the (K, N)
+//   kernel's FMAs, bf16 for the (N, K) kernel's tensor cores), and each
+//   output's scale and residual are read at the start, under the stream.
+// - (K, N) layout: a block owns 32 output columns and one slice of the
+//   K rows. The slices of one column tile form a thread-block cluster of
+//   1 to 8 blocks, as many as it takes for the grid to hold about two
+//   blocks per SM (down 4096 -> 1024: 32 tiles x 8 slices = 256 blocks of
+//   128 threads; up 1024 -> 4096: 128 tiles x 2 slices, 256 threads).
+//   Each block sums its slice in registers, then within each warp by a
+//   reduce-scatter and across its warps in shared memory, in a fixed
+//   order; the cluster's blocks then read each
+//   other's partials through distributed shared memory and each finishes
+//   an equal share of the tile's outputs, summing the slices in rank
+//   order. One launch, no workspace, no atomics: two launches give the
+//   same bits.
 // - (N, K) layout (`transpose_w`, the tied head reading the (vocab, dim)
-//   embedding): one warp per output column walks that column's
-//   contiguous K row with 16-byte loads and reduces with shuffles, so
-//   the 32768-row head is 4096 blocks of 8 warps.
-// Simple first: no cp.async/TMA pipelining and no split-K across blocks
-// yet (later work; PERF.md has the measured gap to the bound).
+//   embedding): each output column's dot product belongs to one warp,
+//   which walks the column's contiguous K row. A warp owns 16 columns and
+//   runs their products on tensor cores (mma.sync, bf16 in, f32 sums),
+//   since at 8 rows x 8 columns per 16-byte load the CUDA cores' FMAs
+//   would take as long as the stream; eight loads per row in flight, the
+//   32768-column head is 512 blocks of 4 warps.
+// After the full sum the reference's op order: f32 dot, then * scale,
+// then residual + bf16(y).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxRows = 8;
-constexpr int kWarps = 8;
-constexpr int kTileN = 64;  // 32 lanes x 2 columns
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+// (K, N) layout.
+constexpr int kTileN = 32;     // output columns of a block
+constexpr int kMaxSplit = 8;   // K slices of a column tile (a cluster)
+constexpr int kMinBlocks = 256;  // about two blocks for each of 132 SMs
+constexpr int kChunkK = 512;   // activation rows staged at a time
+// (N, K) layout.
+constexpr int kChunkNK = 1024;  // activation columns staged at a time
+constexpr int kUnrollNK = 8;    // 16-byte loads of a weight row in flight
 
-__device__ __forceinline__ void load2(const bf16* p, float& a, float& b) {
-  __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
-  a = __low2float(v);
-  b = __high2float(v);
+// Columns in one 16-byte load.
+template <typename WT>
+constexpr int kVec = 16 / (int)sizeof(WT);
+
+__device__ __forceinline__ uint4 load16(const void* p, bool valid) {
+  return valid ? __ldg(reinterpret_cast<const uint4*>(p))
+               : make_uint4(0u, 0u, 0u, 0u);
 }
 
-__device__ __forceinline__ void load2(const int8_t* p, float& a, float& b) {
-  char2 v = *reinterpret_cast<const char2*>(p);
-  a = (float)v.x;
-  b = (float)v.y;
-}
-
-__device__ __forceinline__ void load8(const bf16* p, float* o) {
-  uint4 u = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void unpack(const uint4& u, float (&o)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -52,127 +78,386 @@ __device__ __forceinline__ void load8(const bf16* p, float* o) {
   }
 }
 
-__device__ __forceinline__ void load8(const int8_t* p, float* o) {
-  uint2 u = *reinterpret_cast<const uint2*>(p);
+__device__ __forceinline__ void unpack(const uint4& u, float (&o)[16]) {
   const int8_t* b = reinterpret_cast<const int8_t*>(&u);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) o[i] = (float)b[i];
+  for (int i = 0; i < 16; ++i) o[i] = (float)b[i];
 }
 
-// The reference op order: f32 dot -> * scale -> (residual + bf16(y)).
-__device__ __forceinline__ void store_out(float y, int r, int c, int n,
-                                          const float* scale,
-                                          const bf16* residual, void* out) {
-  if (scale != nullptr) y *= scale[c];
-  const size_t idx = (size_t)r * n + c;
-  if (residual != nullptr) {
-    static_cast<bf16*>(out)[idx] =
-        __float2bfloat16(to_f32(residual[idx]) + round_bf16(y));
-  } else {
-    static_cast<float*>(out)[idx] = y;
+// Stages activation columns [kc, kc + kn) of the (rows, k) bf16 x into
+// xs[kMaxRows][C] as f32, zero past `rows` and `kn`: 16-byte loads,
+// every one issued before the first store (kn and kc multiples of 8).
+template <int C, int NT>
+__device__ __forceinline__ void stage_x(float (*xs)[C], const bf16* x,
+                                        int rows, int k, int kc, int kn,
+                                        int tid) {
+  constexpr int kPerRow = C / 8;
+  constexpr int kLoads = kMaxRows * kPerRow / NT;
+  uint4 v[kLoads];
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int idx = tid + i * NT;
+    const int r = idx / kPerRow;
+    const int kk = (idx % kPerRow) * 8;
+    v[i] = load16(x + (size_t)r * k + kc + kk, r < rows && kk < kn);
+  }
+#pragma unroll
+  for (int i = 0; i < kLoads; ++i) {
+    const int idx = tid + i * NT;
+    float f[8];
+    unpack(v[i], f);
+    float4* dst =
+        reinterpret_cast<float4*>(&xs[idx / kPerRow][(idx % kPerRow) * 8]);
+    dst[0] = make_float4(f[0], f[1], f[2], f[3]);
+    dst[1] = make_float4(f[4], f[5], f[6], f[7]);
   }
 }
 
-template <typename WT>
-__global__ void __launch_bounds__(kWarps * 32)
+// One output's epilogue operands, read at the kernel's start so that
+// their latency hides under the weight stream: the channel scale (1 when
+// there is none: y * 1 is y) and the residual.
+struct Epilogue {
+  float scale;
+  float residual;
+  __device__ __forceinline__ static Epilogue load(bool owns, int r, int c,
+                                                  int n, const float* sp,
+                                                  const bf16* rp) {
+    Epilogue e{1.f, 0.f};
+    if (owns && sp != nullptr) e.scale = sp[c];
+    if (owns && rp != nullptr) e.residual = to_f32(rp[(size_t)r * n + c]);
+    return e;
+  }
+  // The reference op order: f32 dot -> * scale -> (residual + bf16(y)).
+  __device__ __forceinline__ void store(float y, int r, int c, int n,
+                                        bool has_residual, void* out) const {
+    y *= scale;
+    const size_t idx = (size_t)r * n + c;
+    if (has_residual)
+      static_cast<bf16*>(out)[idx] = __float2bfloat16(residual + round_bf16(y));
+    else
+      static_cast<float*>(out)[idx] = y;
+  }
+};
+
+// One step of a warp's reduce-scatter over the lanes that differ in lane
+// bit OFF: each keeps one half of its first 2 * HALF sums (the upper
+// lane the upper half), adds its partner's copy of that half into acc's
+// first HALF, and recurses down to lane bit STOP. Every index is a
+// compile-time constant, so acc stays in registers.
+template <int OFF, int HALF, int STOP, int VC>
+__device__ __forceinline__ void reduce_scatter(float (&acc)[kMaxRows][VC],
+                                               int lane, int& base) {
+  if constexpr (OFF >= STOP) {
+    const bool upper = (lane & OFF) != 0;
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+      float& lo = acc[i / VC][i % VC];
+      const float hi = acc[(i + HALF) / VC][(i + HALF) % VC];
+      const float send = upper ? lo : hi;
+      lo = (upper ? hi : lo) + __shfl_xor_sync(0xffffffffu, send, OFF);
+    }
+    if (upper) base += HALF;
+    reduce_scatter<OFF / 2, HALF / 2, STOP>(acc, lane, base);
+  }
+}
+
+// Grid (slices, column tiles), launched as clusters of `slices` blocks
+// along x; block x of a cluster sums weight rows [x * slice, (x + 1) *
+// slice).
+template <typename WT, int NT>
+__global__ void __launch_bounds__(NT)
 gemv_kn_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
                const float* __restrict__ scale,
                const bf16* __restrict__ residual, void* __restrict__ out,
-               int rows, int k, int n) {
-  __shared__ float partial[kWarps][kMaxRows][kTileN];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int col = blockIdx.x * kTileN + lane * 2;
-  float acc[kMaxRows][2];
+               int rows, int k, int n, int slice) {
+  constexpr int VC = kVec<WT>;
+  constexpr int TPR = kTileN / VC;     // threads on one weight row
+  constexpr int RPS = NT / TPR;       // weight rows a step covers
+  constexpr int kSteps = kChunkK / RPS;
+  __shared__ __align__(16) float xs[kMaxRows][kChunkK];
+  __shared__ float part[NT / 32][kMaxRows][kTileN];
+  __shared__ float total[kMaxRows * kTileN];  // this block's partial
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = (int)cluster.block_rank();
+  const int nsplit = (int)cluster.num_blocks();
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int c0 = blockIdx.y * kTileN;
+  const int group = tid % TPR;  // this thread's VC columns of the tile
+  const int phase = tid / TPR;  // and its first weight row of a step
+  const int col = c0 + group * VC;
+  const int k_lo = split * slice;
+  const int k_hi = min(k, k_lo + slice);
+  // Block `split` finishes outputs [split * share, (split + 1) * share)
+  // of the tile: output split * share + o for o = tid + u * NT.
+  constexpr int kOuts = kMaxRows * kTileN / NT;
+  const int share = kMaxRows * kTileN / nsplit;
+  Epilogue epi[kOuts];
 #pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) acc[r][0] = acc[r][1] = 0.f;
-  if (col < n) {
-#pragma unroll 4
-    for (int kk = warp; kk < k; kk += kWarps) {
-      float w0, w1;
-      load2(w + (size_t)kk * n + col, w0, w1);
+  for (int u = 0; u < kOuts; ++u) {
+    const int i = split * share + tid + u * NT;
+    epi[u] = Epilogue::load(tid + u * NT < share && i / kTileN < rows &&
+                                c0 + i % kTileN < n,
+                            i / kTileN, c0 + i % kTileN, n, scale, residual);
+  }
+
+  float acc[kMaxRows][VC];
+#pragma unroll
+  for (int r = 0; r < kMaxRows; ++r)
+#pragma unroll
+    for (int c = 0; c < VC; ++c) acc[r][c] = 0.f;
+
+  for (int kc = k_lo; kc < k_hi; kc += kChunkK) {
+    const int kn = min(kChunkK, k_hi - kc);
+    uint4 wv[kSteps];
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const int kk = phase + j * RPS;
+      wv[j] = load16(w + (size_t)(kc + kk) * n + col, kk < kn && col < n);
+    }
+    __syncthreads();  // the previous chunk's activations are consumed
+    stage_x<kChunkK, NT>(xs, x, rows, k, kc, kn, tid);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const int kk = phase + j * RPS;
+      float wf[VC];
+      unpack(wv[j], wf);
 #pragma unroll
       for (int r = 0; r < kMaxRows; ++r) {
-        if (r < rows) {
-          const float xv = to_f32(x[(size_t)r * k + kk]);
-          acc[r][0] = fmaf(xv, w0, acc[r][0]);
-          acc[r][1] = fmaf(xv, w1, acc[r][1]);
-        }
+        const float xr = xs[r][kk];
+#pragma unroll
+        for (int c = 0; c < VC; ++c) acc[r][c] = fmaf(xr, wf[c], acc[r][c]);
       }
     }
   }
+
+  // The block's sum. Within a warp, the lanes of one column group
+  // (lane bits TPR..16) reduce-scatter their R x VC sums: at each step a
+  // lane keeps one half, sends the other to its partner and adds what it
+  // receives, so it ends with 8 whole sums for 56 (bf16) or 120 (int8)
+  // shuffles, where a butterfly would take R x VC a step. Then the warps
+  // add in order through shared memory.
+  int base = 0;  // flat index in acc of this lane's first kept sum
+  reduce_scatter<16, kMaxRows * VC / 2, TPR>(acc, lane, base);
 #pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) {
-    partial[warp][r][lane * 2] = acc[r][0];
-    partial[warp][r][lane * 2 + 1] = acc[r][1];
+  for (int j = 0; j < 8; ++j) {
+    const int idx = base + j;
+    part[warp][idx / VC][group * VC + idx % VC] = acc[j / VC][j % VC];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < rows * kTileN; i += blockDim.x) {
-    const int r = i / kTileN;
-    const int c = i % kTileN;
-    const int gc = blockIdx.x * kTileN + c;
-    if (gc >= n) continue;
+  for (int i = tid; i < kMaxRows * kTileN; i += NT) {
     float y = 0.f;
 #pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) y += partial[wi][r][c];
-    store_out(y, r, gc, n, scale, residual, out);
+    for (int wi = 0; wi < NT / 32; ++wi) y += part[wi][i / kTileN][i % kTileN];
+    total[i] = y;
   }
+
+  // The cluster's sum: each owned output adds the slices' partials in
+  // rank order, all read at once (0 past the cluster's last block).
+  cluster.sync();
+#pragma unroll
+  for (int u = 0; u < kOuts; ++u) {
+    if (tid + u * NT >= share) break;
+    const int i = split * share + tid + u * NT;
+    float part_of[kMaxSplit];
+#pragma unroll
+    for (int src = 0; src < kMaxSplit; ++src)
+      part_of[src] =
+          src < nsplit ? cluster.map_shared_rank(&total[0], src)[i] : 0.f;
+    float y = 0.f;
+#pragma unroll
+    for (int src = 0; src < kMaxSplit; ++src) y += part_of[src];
+    const int r = i / kTileN;
+    const int c = c0 + i % kTileN;
+    if (r < rows && c < n)
+      epi[u].store(y, r, c, n, residual != nullptr, out);
+  }
+  cluster.sync();  // no block leaves while another reads its partial
 }
 
+// D(16 x 8) += A(16 x 16) B(16 x 8), bf16 in, f32 accumulate (mma.sync
+// m16n8k16: thread g = lane / 4, t = lane % 4 holds A rows g and g + 8 and
+// B column g, each at k pairs (2t, 2t+1) and (2t+8, 2t+9); D rows g, g + 8
+// at columns 2t, 2t + 1).
+__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0,
+                                          uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_pair(int8_t lo, int8_t hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn((float)lo, (float)hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Word i (two neighbouring k values, bf16x2) of a 16-byte load.
+__device__ __forceinline__ uint32_t pair_of(const uint4& u, int i, bf16) {
+  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+}
+__device__ __forceinline__ uint32_t pair_of(const uint4& u, int i, int8_t) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+  return pack_pair(b[2 * i], b[2 * i + 1]);
+}
+
+// The (N, K) layout on tensor cores: a warp owns 16 output columns and
+// computes their (16 x R) block as W (16 x K) times x^T (K x R). The sum
+// over k does not care which k a lane holds, so lane t loads VC
+// neighbouring k values of its two weight rows (one 16-byte load each)
+// and the same k of x, and feeds them to the mma as if they were the
+// fragment's k pairs: A and B agree on every k, so each product pairs the
+// right elements with no shuffle. int8 weights become bf16 exactly
+// (|w| <= 127) and their scale multiplies after the dot, as everywhere.
 template <typename WT>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 gemv_nk_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
                const float* __restrict__ scale,
                const bf16* __restrict__ residual, void* __restrict__ out,
                int rows, int k, int n) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int col = blockIdx.x * kWarps + warp;
-  if (col >= n) return;
-  const WT* wrow = w + (size_t)col * k;
-  float acc[kMaxRows];
+  constexpr int VC = kVec<WT>;       // k values in one 16-byte load
+  constexpr int KS = 4 * VC;         // k a warp covers in one step
+  constexpr int kBatch = kUnrollNK * KS;
+  // bf16 x, each row padded by 64 bytes: the 16-byte reads of two rows
+  // in one shared-memory phase fall on different banks.
+  __shared__ __align__(16) bf16 xs[kMaxRows][kChunkNK + 32];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int n0 = (blockIdx.x * kWarps + warp) * 16;
+  const int ca = n0 + g;      // A rows: output columns ca and cb
+  const int cb = ca + 8;
+  // This lane's outputs: rows 2t, 2t + 1 of columns ca, cb.
+  const Epilogue e00 = Epilogue::load(2 * t < rows && ca < n, 2 * t, ca, n,
+                                      scale, residual);
+  const Epilogue e01 = Epilogue::load(2 * t + 1 < rows && ca < n, 2 * t + 1,
+                                      ca, n, scale, residual);
+  const Epilogue e10 = Epilogue::load(2 * t < rows && cb < n, 2 * t, cb, n,
+                                      scale, residual);
+  const Epilogue e11 = Epilogue::load(2 * t + 1 < rows && cb < n, 2 * t + 1,
+                                      cb, n, scale, residual);
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+
+  uint4 wa[kUnrollNK], wb[kUnrollNK];
+  auto load_batch = [&](int kc, int kb, int kn) {
 #pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.f;
-  for (int k0 = lane * 8; k0 < k; k0 += 32 * 8) {
-    float wv[8];
-    load8(wrow + k0, wv);
+    for (int u = 0; u < kUnrollNK; ++u) {
+      const int kk = kb + u * KS + t * VC;
+      wa[u] = load16(w + (size_t)ca * k + kc + kk, ca < n && kk < kn);
+      wb[u] = load16(w + (size_t)cb * k + kc + kk, cb < n && kk < kn);
+    }
+  };
+  for (int kc = 0; kc < k; kc += kChunkNK) {
+    const int kn = min(kChunkNK, k - kc);
+    load_batch(kc, 0, kn);  // in flight while x is staged
+    __syncthreads();  // the previous chunk's activations are consumed
+    constexpr int kXLoads = kMaxRows * kChunkNK / 8 / kThreads;
+    uint4 xl[kXLoads];
 #pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) {
-      if (r < rows) {
-        float xv[8];
-        load8(x + (size_t)r * k + k0, xv);
+    for (int j = 0; j < kXLoads; ++j) {
+      const int i = tid + j * kThreads;
+      const int kk = (i % (kChunkNK / 8)) * 8;
+      xl[j] = load16(x + (size_t)(i / (kChunkNK / 8)) * k + kc + kk,
+                     i / (kChunkNK / 8) < rows && kk < kn);
+    }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[r] = fmaf(xv[j], wv[j], acc[r]);
+    for (int j = 0; j < kXLoads; ++j) {
+      const int i = tid + j * kThreads;
+      *reinterpret_cast<uint4*>(
+          &xs[i / (kChunkNK / 8)][(i % (kChunkNK / 8)) * 8]) = xl[j];
+    }
+    __syncthreads();
+    for (int kb = 0; kb < kn; kb += kBatch) {
+      if (kb > 0) load_batch(kc, kb, kn);
+#pragma unroll
+      for (int u = 0; u < kUnrollNK; ++u) {
+        const int kk = kb + u * KS + t * VC;
+#pragma unroll
+        for (int h = 0; h < VC / 8; ++h) {
+          const uint4 xv = *reinterpret_cast<const uint4*>(&xs[g][kk + 8 * h]);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            const int i = 4 * h + 2 * m;  // weight pairs i, i + 1
+            mma_16816(d, pair_of(wa[u], i, WT()), pair_of(wb[u], i, WT()),
+                      pair_of(wa[u], i + 1, WT()),
+                      pair_of(wb[u], i + 1, WT()), pair_of(xv, 2 * m, bf16()),
+                      pair_of(xv, 2 * m + 1, bf16()));
+          }
+        }
       }
     }
   }
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) acc[r] = warp_sum(acc[r]);
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) {
-      if (r < rows) store_out(acc[r], r, col, n, scale, residual, out);
-    }
-  }
+  const bool has_residual = residual != nullptr;
+  if (2 * t < rows && ca < n) e00.store(d[0], 2 * t, ca, n, has_residual, out);
+  if (2 * t + 1 < rows && ca < n)
+    e01.store(d[1], 2 * t + 1, ca, n, has_residual, out);
+  if (2 * t < rows && cb < n) e10.store(d[2], 2 * t, cb, n, has_residual, out);
+  if (2 * t + 1 < rows && cb < n)
+    e11.store(d[3], 2 * t + 1, cb, n, has_residual, out);
+}
+
+// Splits K until the grid holds about two blocks per SM (at least one
+// step of weight rows a slice) and launches the clusters.
+template <typename WT, int NT>
+int launch_kn(const bf16* xp, const WT* wp, const float* sp, const bf16* rp,
+              void* out, int rows, int k, int n, int tiles,
+              cudaStream_t stream) {
+  constexpr int kRowsPerStep = NT / (kTileN / kVec<WT>);
+  int nsplit = 1;
+  while (nsplit < kMaxSplit && tiles * nsplit < kMinBlocks &&
+         k >= 2 * nsplit * kRowsPerStep)
+    nsplit *= 2;
+  const int slice = ((k + nsplit - 1) / nsplit + 15) / 16 * 16;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nsplit, tiles);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, gemv_kn_kernel<WT, NT>, xp, wp,
+                                       sp, rp, out, rows, k, n, slice);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 template <typename WT>
-void launch(const void* x, const void* w, const void* scale,
-            const void* residual, void* out, int rows, int k, int n,
-            int transpose_w, cudaStream_t stream) {
+int launch(const void* x, const void* w, const void* scale,
+           const void* residual, void* out, int rows, int k, int n,
+           int transpose_w, cudaStream_t stream) {
   const bf16* xp = static_cast<const bf16*>(x);
   const WT* wp = static_cast<const WT*>(w);
   const float* sp = static_cast<const float*>(scale);
   const bf16* rp = static_cast<const bf16*>(residual);
   if (transpose_w) {
-    dim3 grid((n + kWarps - 1) / kWarps);
-    gemv_nk_kernel<WT><<<grid, kWarps * 32, 0, stream>>>(xp, wp, sp, rp, out,
-                                                         rows, k, n);
-  } else {
-    dim3 grid((n + kTileN - 1) / kTileN);
-    gemv_kn_kernel<WT><<<grid, kWarps * 32, 0, stream>>>(xp, wp, sp, rp, out,
-                                                         rows, k, n);
+    const int per_block = kWarps * 16;
+    gemv_nk_kernel<WT><<<(n + per_block - 1) / per_block, kThreads, 0,
+                         stream>>>(xp, wp, sp, rp, out, rows, k, n);
+    return (int)cudaGetLastError();
   }
+  // A wide N (a few K slices suffice) takes 256-thread blocks, a narrow
+  // one 128-thread blocks split eight ways: the measured best of both
+  // shapes on the card (PERF.md).
+  const int tiles = (n + kTileN - 1) / kTileN;
+  if (2 * tiles >= kMinBlocks)
+    return launch_kn<WT, 2 * kThreads>(xp, wp, sp, rp, out, rows, k, n,
+                                       tiles, stream);
+  return launch_kn<WT, kThreads>(xp, wp, sp, rp, out, rows, k, n, tiles,
+                                 stream);
 }
 
 }  // namespace
@@ -185,15 +470,13 @@ KFT_EXPORT const char* kft_error_string(int err) {
 
 // x (rows, k) bf16; w (k, n) or, with transpose_w, (n, k), bf16 or int8;
 // scale (n,) f32 or null; residual (rows, n) bf16 or null; out (rows, n)
-// f32, or bf16 when a residual is given.
+// f32, or bf16 when a residual is given. k and n multiples of 16.
 KFT_EXPORT int kft_gemv(const void* x, const void* w, const void* scale,
                         const void* residual, void* out, int rows, int k,
                         int n, int w_int8, int transpose_w, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w_int8) {
-    launch<int8_t>(x, w, scale, residual, out, rows, k, n, transpose_w, s);
-  } else {
-    launch<bf16>(x, w, scale, residual, out, rows, k, n, transpose_w, s);
-  }
-  return (int)cudaGetLastError();
+  if (w_int8)
+    return launch<int8_t>(x, w, scale, residual, out, rows, k, n,
+                          transpose_w, s);
+  return launch<bf16>(x, w, scale, residual, out, rows, k, n, transpose_w, s);
 }

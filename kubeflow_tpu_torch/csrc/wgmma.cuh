@@ -68,13 +68,16 @@ __device__ __forceinline__ void fence_proxy_async() {
 // swizzled tile at shared address `dst`, zero-filling rows at or
 // past S. Only a row's D / 8 chunks are written: the columns of a tile
 // padded past D are never read into a stored result. NT threads share
-// the copies.
+// the copies, each a fixed count (the loop unrolls, and a thread's chunk
+// column and swizzle phase stay put from one copy to the next).
 template <int D, int NT>
 __device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src,
                                           int r0, int S, int tid) {
   constexpr int kChunks = D / 8;
+  static_assert(kTileRows * kChunks % NT == 0, "whole copies per thread");
 #pragma unroll
-  for (int i = tid; i < kTileRows * kChunks; i += NT) {
+  for (int j = 0; j < kTileRows * kChunks / NT; ++j) {
+    const int i = tid + j * NT;
     const int r = i / kChunks;
     const int c = i % kChunks;
     const bool valid = r0 + r < S;

@@ -20,8 +20,10 @@ dk products. :func:`mha_reference` stays the plain f32 attention.
 
 A row with no live key cannot occur in self-attention (its diagonal is
 live under every mask here); with Sq > Sk under a window it can. Such a
-row gets 0 and lse -1e30 when no live tile reaches it, and zero gradient:
-the backward masks p explicitly instead of relying on exp underflow.
+row gets o = 0, lse = -1e30 and zero gradient: forward and backward mask
+p explicitly instead of relying on exp underflow. (The JAX kernel gives
+such a row the mean of V over any live block that reaches it, a result
+that depends on its block size.)
 """
 
 from __future__ import annotations
@@ -174,12 +176,13 @@ def _twin_scores(q, k, causal, window, segment_ids, scale):
 def flash_forward_reference(q, k, v, *, causal=False, window=None,
                             segment_ids=None, scale=None):
     """The forward kernel's plain twin: (o in q.dtype, lse (B, H, Sq)
-    f32), with p rounded to v.dtype before the PV product."""
+    f32), with p rounded to v.dtype before the PV product and 0 on a
+    masked pair (a row with no live key: o = 0, lse = -1e30)."""
     scale = _scale(q, scale)
     s, keep = _twin_scores(q, k, causal, window, segment_ids, scale)
     s = torch.where(keep, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
+    p = torch.where(keep, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0, torch.ones_like(l), l)
     group = q.shape[1] // k.shape[1]

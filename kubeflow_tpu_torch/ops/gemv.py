@@ -24,10 +24,11 @@ MAX_ROWS = 8  # beyond this the rows are a real matmul, not a stream
 
 
 def gemv_fits(rows: int, k: int, n: int) -> bool:
-    """True when the kernel accepts these shapes: 1..MAX_ROWS rows, K a
-    multiple of 16 (16-byte loads of a contiguous K row) and N even
-    (two columns per lane)."""
-    return 1 <= rows <= MAX_ROWS and k % 16 == 0 and n % 2 == 0
+    """True when the kernel accepts these shapes: 1..MAX_ROWS rows, and K
+    and N multiples of 16: every lane loads 16 bytes of a weight row (8
+    bf16 or 16 int8 elements), along N in the (K, N) layout and along K
+    in the (N, K) one."""
+    return 1 <= rows <= MAX_ROWS and k % 16 == 0 and n % 16 == 0
 
 
 def _check(x, w, scale, residual, transpose_w):

@@ -1,26 +1,35 @@
 #!/usr/bin/env bash
-# Plant one fault in a copy of the port's flash backward kernels and read
-# what each check makes of it: chip_smoke.py (it stops in its kernel
-# phase), the card tests, and the train configuration's step-0 gradient
-# readings (chip_smoke.step0_readings), which the smoke never reaches
-# under a fault. The repo itself is never edited: the copy lives under
+# Plant one fault in a copy of one of the port's kernels and read what
+# each check makes of it: chip_smoke.py (it stops in its kernel phase),
+# the card tests, and the train configuration's step-0 gradient readings
+# (chip_smoke.step0_readings), which the smoke never reaches under a
+# fault. The repo itself is never edited: the copy lives under
 # build/torch_faults/<fault>/.
 #
 # Run from the root of a checkout, on a machine with one H100 and nvcc:
-#   testing/torch_fault_check.sh none|dq_diagonal|dkv_last_tile|dkv_group_head
-# none          the sound kernels (the readings' control)
-# dq_diagonal   dq drops the diagonal (its causal mask shifted by one key)
-# dkv_last_tile dk/dv skip the last query tile of every key block
-# dkv_group_head dk/dv skip the last query head of every GQA group (all
-#               heads when kv heads = heads)
+#   testing/torch_fault_check.sh <fault>
+# Each fault names the source under kubeflow_tpu_torch/csrc/ it rewrites:
+# none            the sound kernels (the readings' control)
+# dq_diagonal     flash_bwd.cu: dq drops the diagonal (its causal mask
+#                 shifted by one key)
+# dkv_last_tile   flash_bwd.cu: dk/dv skip the last query tile of every
+#                 key block
+# dkv_group_head  flash_bwd.cu: dk/dv skip the last query head of every
+#                 GQA group (all heads when kv heads = heads)
+# fwd_diagonal    flash_fwd.cu: the forward's causal mask shifted by one key
+# fwd_last_tile   flash_fwd.cu: the forward skips its last live key tile
+# gemv_last_split gemv.cu: the (K, N) GEMV drops its last K slice's partial
 set -uo pipefail
 
-fault=${1:?usage: $0 none|dq_diagonal|dkv_last_tile|dkv_group_head}
+fault=${1:?usage: $0 <fault> (see the header)}
 case $fault in
-  none) expr='' ;;
-  dq_diagonal) expr='s/pair_live(hi ? r_hi : r_lo, col,/pair_live(hi ? r_hi : r_lo, col + 1,/' ;;
-  dkv_last_tile) expr='s/if (q0 >= q_end) {/if (q0 >= q_end - kTile) {/' ;;
-  dkv_group_head) expr='s/g < group/g < group - 1/' ;;
+  none) file= expr='' ;;
+  dq_diagonal) file=flash_bwd.cu expr='s/pair_live(hi ? r_hi : r_lo, col,/pair_live(hi ? r_hi : r_lo, col + 1,/' ;;
+  dkv_last_tile) file=flash_bwd.cu expr='s/if (q0 >= q_end) {/if (q0 >= q_end - kTile) {/' ;;
+  dkv_group_head) file=flash_bwd.cu expr='s/g < group/g < group - 1/' ;;
+  fwd_diagonal) file=flash_fwd.cu expr='s/pair_live(row, col,/pair_live(row, col + 1,/' ;;
+  fwd_last_tile) file=flash_fwd.cu expr='s/while (k0 < k_end) {/while (k0 + kTile < k_end) {/' ;;
+  gemv_last_split) file=gemv.cu expr='s/src < nsplit ?/src < nsplit - 1 ?/' ;;
   *) echo "unknown fault: $fault" >&2; exit 2 ;;
 esac
 
@@ -31,10 +40,10 @@ mkdir -p "$work/tests"
 cp -r kubeflow_tpu_torch chip_smoke.py "$work/"
 cp tests/test_torch_cuda.py "$work/tests/"
 rm -rf "$work/kubeflow_tpu_torch/build"
-src=$work/kubeflow_tpu_torch/csrc/flash_bwd.cu
 if [ -n "$expr" ]; then
+  src=$work/kubeflow_tpu_torch/csrc/$file
   sed -i "$expr" "$src"
-  if cmp -s "$src" kubeflow_tpu_torch/csrc/flash_bwd.cu; then
+  if cmp -s "$src" "kubeflow_tpu_torch/csrc/$file"; then
     echo "fault $fault was not planted" >&2
     exit 2
   fi

@@ -4,8 +4,10 @@
 Builds the kernel library (``kubeflow_tpu_torch/ops/_build.py``) and reads
 its SASS with ``cuobjdump -sass``: prints, for every kernel instance, how
 many HGMMA (wgmma) and HMMA (mma.sync) instructions it holds, and exits 1
-when a flash backward instance (``flash_dq_kernel``, ``flash_dkv_kernel``)
-holds none. Run from the root of a checkout on a machine with the CUDA
+when an instance of a flash kernel (``flash_fwd_kernel``,
+``flash_dq_kernel``, ``flash_dkv_kernel``) holds none. Instances are
+named by their template arguments (``flash_fwd_kernel<128,2>``: head dim
+128, two warpgroups). Run from the root of a checkout on a machine with the CUDA
 toolkit: ``python3 testing/torch_sass_check.py``.
 """
 
@@ -22,7 +24,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from kubeflow_tpu_torch.ops import _build  # noqa: E402
 
-TENSOR_CORE_KERNELS = ("flash_dq_kernel", "flash_dkv_kernel")
+TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel",
+                       "flash_dkv_kernel")
 
 
 def main() -> int:
@@ -35,13 +38,14 @@ def main() -> int:
     for line in sass.splitlines():
         found = re.search(r"Function : (\S+)", line)
         if found:
-            # mangled: ...<length><name>ILi<head dim>E...
+            # mangled: ...<length><name>ILi<head dim>ELi<...>E...
             short = re.search(r"(?<![a-z])([a-z]+(?:_[a-z]+)*_kernel)"
-                              r"(?:ILi(\d+)E)?", found.group(1))
+                              r"(?:I((?:Li\d+E)+))?", found.group(1))
             name = found.group(1)
             if short:
-                name = short.group(1) + (f"<{short.group(2)}>"
-                                         if short.group(2) else "")
+                args = re.findall(r"\d+", short.group(2) or "")
+                name = short.group(1) + (f"<{','.join(args)}>"
+                                         if args else "")
             counts[name] = {"HGMMA": 0, "HMMA": 0}
             continue
         for op in ("HGMMA", "HMMA"):

@@ -92,6 +92,59 @@ def test_gemv_kernel_matches_twin(card, case):
                   TOL_BF16 if res is not None else TOL_F32)
 
 
+# (rows, k, n, residual, transpose, int8): the flagship's decode shapes,
+# and ragged ones: a column tile cut by N (n % 32 != 0), a K slice that
+# ends inside a staged chunk, a K that is no multiple of the (N, K)
+# kernel's staged chunk, a K too short to split (one block finishes every
+# output of its tile).
+GEMV_SHAPES = {
+    "proj_residual": (8, 1024, 1024, True, False, False),
+    "down_residual": (8, 4096, 1024, True, False, False),
+    "up": (8, 1024, 4096, False, False, False),
+    "tied_head": (8, 1024, 32768, False, True, False),
+    "ragged_tile_and_slice": (3, 1040, 4112, False, False, False),
+    "int8_ragged": (7, 1040, 2064, True, False, True),
+    "transpose_ragged_k": (2, 1552, 272, True, True, False),
+    "one_slice": (4, 64, 8208, True, False, False),
+}
+
+
+def _gemv_inputs(gen, case):
+    rows, k, n, residual, transpose, int8 = GEMV_SHAPES[case]
+    x = _randn(gen, rows, k)
+    w = _randn(gen, *((n, k) if transpose else (k, n)), std=k ** -0.5)
+    scale = None
+    if int8:
+        axis = 1 if transpose else 0
+        scale = w.float().abs().amax(dim=axis) / 127.0
+        w = torch.round(w.float() / scale.unsqueeze(axis)).to(torch.int8)
+    res = _randn(gen, rows, n) if residual else None
+    return (x, w, scale, res), dict(transpose_w=transpose)
+
+
+@pytest.mark.parametrize("case", sorted(GEMV_SHAPES))
+def test_gemv_kernel_at_decode_and_ragged_shapes(card, case):
+    from kubeflow_tpu_torch.ops.gemv import gemv, gemv_reference
+
+    args, kw = _gemv_inputs(card, case)
+    out = gemv(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_close(out, gemv_reference(*args, **kw),
+                  TOL_BF16 if args[3] is not None else TOL_F32)
+
+
+@pytest.mark.parametrize("case", ["tied_head", "down_residual"])
+def test_gemv_kernel_is_deterministic(card, case):
+    """No atomics: the K slices meet in a fixed order, so two launches
+    give the same bits."""
+    from kubeflow_tpu_torch.ops.gemv import gemv
+
+    args, kw = _gemv_inputs(card, case)
+    first, second = gemv(*args, **kw), gemv(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("hd,heads,kv", [(128, 8, 2), (40, 3, 1), (16, 4, 2)])
 def test_qkv_rope_kernel_writes_every_column(card, hd, heads, kv):
     from kubeflow_tpu_torch.ops.decode_qkv import qkv_rope, qkv_rope_reference
@@ -191,19 +244,38 @@ def _backward_inputs(gen, case, cases=BACKWARD_CASES):
     return q, k, v, do, dict(causal=causal, window=window, segment_ids=seg)
 
 
-@pytest.mark.parametrize("case", sorted(BACKWARD_CASES))
+# Sq > Sk under a window: rows from Sk - 1 + window on see no key.
+NO_LIVE_KEY_CASE = {"window_sq_gt_sk": (True, 64, False, 4, 2, 300, 130, 128)}
+FORWARD_CASES = {**BACKWARD_CASES,
+                 "sq_gt_sk_window": NO_LIVE_KEY_CASE["window_sq_gt_sk"]}
+
+
+@pytest.mark.parametrize("case", sorted(FORWARD_CASES))
 def test_flash_forward_lse_matches_twin(card, case):
+    """o and lse against the twin. Rows with no live key (the
+    sq_gt_sk_window case) must be exactly o = 0 and lse = -1e30 in both;
+    lse is compared on the other rows (a -1e30 would set the row RMS)."""
     from kubeflow_tpu_torch.ops.attention import (
+        NEG_INF,
         flash_forward,
         flash_forward_reference,
     )
 
-    q, k, v, _, kw = _backward_inputs(card, case)
+    q, k, v, _, kw = _backward_inputs(card, case, FORWARD_CASES)
     o, lse = flash_forward(q, k, v, **kw)
     torch.cuda.synchronize()
     o_ref, lse_ref = flash_forward_reference(q, k, v, **kw)
     _assert_close(o, o_ref, TOL_BF16)
-    _assert_close(lse, lse_ref, TOL_F32)
+    dead = lse_ref == NEG_INF
+    if case == "sq_gt_sk_window":
+        first_dead = k.shape[2] - 1 + kw["window"]
+        assert bool(dead[:, :, first_dead:].all())
+        assert not bool(dead[:, :, :first_dead].any())
+    assert torch.equal(lse[dead], lse_ref[dead])
+    assert torch.count_nonzero(o[dead]) == 0
+    zero = torch.zeros_like(lse)
+    _assert_close(torch.where(dead, zero, lse),
+                  torch.where(dead, zero, lse_ref), TOL_F32)
 
 
 @pytest.mark.parametrize("case", sorted(BACKWARD_CASES))
@@ -231,10 +303,6 @@ def test_flash_backward_kernels_match_twins(card, case):
     dk_ref, dv_ref = flash_dkv_reference(q, k, v, do, lse, delta, **kw)
     _assert_close(dk, dk_ref, TOL_BF16)
     _assert_close(dv, dv_ref, TOL_BF16)
-
-
-# Sq > Sk under a window: rows from Sk - 1 + window on see no key.
-NO_LIVE_KEY_CASE = {"window_sq_gt_sk": (True, 64, False, 4, 2, 300, 130, 128)}
 
 
 def test_flash_backward_rows_without_live_keys_get_zero_gradient(card):

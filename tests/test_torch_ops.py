@@ -23,6 +23,7 @@ from kubeflow_tpu.ops.decode_qkv import qkv_rope as j_qkv_rope
 from kubeflow_tpu.ops.gemv import gemv as j_gemv
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops.attention import (
+    NEG_INF,
     apply_rope,
     flash_attention,
     flash_dkv,
@@ -103,6 +104,48 @@ def test_gemv_validation():
              residual=torch.zeros(2, 32))
     assert gemv_fits(8, 1024, 32768) and not gemv_fits(9, 1024, 1024)
     assert not gemv_fits(1, 1000, 1024) and not gemv_fits(1, 1024, 1023)
+    assert not gemv_fits(1, 1024, 1032)  # 16-byte loads along N
+
+
+def test_every_flagship_decode_projection_takes_the_gemv(monkeypatch):
+    """The flagship's decode-step products (the unfused q/k/v projections,
+    proj and down with their residuals, up, the tied head) reach the GEMV
+    at every batch the engine runs, none the dense fallback: the kernel's
+    fit rule (K and N multiples of 16) holds for every one of them."""
+    from kubeflow_tpu_torch.models import decoding as tdec
+    from kubeflow_tpu_torch.models.transformer import LMConfig
+
+    cfg = LMConfig(vocab=32768, layers=8, dim=1024, heads=8, kv_heads=2,
+                   dtype=torch.bfloat16)
+    d, kv = cfg.dim, cfg.num_kv_heads * cfg.head_dim
+    hidden = cfg.mlp_ratio * d
+    calls = []
+
+    def fake_gemv(x, w, scale=None, residual=None, *, transpose_w=False):
+        calls.append((tuple(x.shape), tuple(w.shape), transpose_w))
+        n = w.shape[0] if transpose_w else w.shape[1]
+        return torch.zeros(x.shape[0], n, dtype=x.dtype)
+
+    def dense(*args):
+        raise AssertionError(f"a flagship product took the dense path: "
+                             f"{[tuple(a.shape) for a in args[:2]]}")
+
+    monkeypatch.setattr(tdec, "DECODE_MM", "gemv")
+    monkeypatch.setattr(tdec, "gemv", fake_gemv)
+    monkeypatch.setattr(tdec, "_dense_mm", dense)
+    bf16 = torch.bfloat16
+    products = [(d, d, False, False), (d, kv, False, False),
+                (d, d, False, True), (d, hidden, False, False),
+                (hidden, d, False, True), (cfg.vocab, d, True, False)]
+    for rows in range(1, MAX_ROWS + 1):
+        for w0, w1, transpose, residual in products:
+            k = w1 if transpose else w0
+            n = w0 if transpose else w1
+            h = torch.empty(rows, 1, k, dtype=bf16)
+            res = torch.empty(rows, 1, n, dtype=bf16) if residual else None
+            tdec._mm(h, torch.empty(w0, w1, dtype=bf16), bf16,
+                     transpose_w=transpose, residual=res)
+    assert len(calls) == MAX_ROWS * len(products)
 
 
 # ---------------------------------------------------------------- qkv_rope
@@ -236,6 +279,34 @@ def test_flash_attention_matches_jax(case):
         causal=causal, window=window,
         segment_ids=None if seg is None else torch.from_numpy(seg))
     _close(out, ref)
+
+
+def test_flash_twin_rows_without_live_keys_emit_zero():
+    """Sq > Sk under a window: rows from Sk - 1 + window on see no key.
+    The forward twin gives them o = 0 and lse = -1e30 (p masked, not left
+    to underflow); every other row matches the JAX kernel (interpret
+    mode), o and lse. The JAX kernel itself gives the first such row the
+    mean of V over the live key block that reaches it, a block-size
+    artefact the port does not copy."""
+    rng = np.random.default_rng(11)
+    b, h, hkv, sq, sk, d, window = 2, 4, 2, 48, 24, 32, 8
+    q = rng.standard_normal((b, h, sq, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, sk, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, sk, d)).astype(np.float32)
+    o, lse = flash_forward(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), causal=True, window=window)
+    dead = sk - 1 + window
+    assert torch.count_nonzero(o[:, :, dead:]) == 0
+    assert torch.all(lse[:, :, dead:] == torch.tensor(NEG_INF))
+    assert torch.all(lse[:, :, :dead] > -1e3)
+    jo, jlse = jattn._flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, True, window,
+        d ** -0.5, 8, 8, True, with_lse=True)
+    jo = np.asarray(jo)
+    jlse = np.asarray(jlse)[:, 0, :].reshape(b, h, sq)
+    _close(o[:, :, :dead], jo[:, :, :dead])
+    _close(lse[:, :, :dead], jlse[:, :, :dead])
+    assert np.abs(jo[:, :, dead]).max() > 0.1
 
 
 @pytest.mark.parametrize("kwargs", [
