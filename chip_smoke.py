@@ -16,7 +16,9 @@ Phases (a failed phase raises; nothing is caught):
    S=2048, head dim 128) and four more masks (SDPA's forward and backward
    as the library calls), element by element within the stated tolerance
    (see ``check_close``); two launches of the GEMV must give equal bits
-   (tied head, down projection); kernel, twin and
+   (tied head, down projection), and so must two launches of the fused
+   QKV+RoPE and of decode attention, and each of their rows launched
+   alone (a batch of one) must equal its row of the batch; kernel, twin and
    library-call times (CUDA events, median of repeated launches, L2
    flushed before each) beside the least time the card could take (bytes
    over 3.35 TB/s or operations over 989 TFLOP/s).
@@ -160,6 +162,19 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def same_bits(torch, kernel, name, out, launch, launch_row) -> None:
+    """Fail unless a second launch, and each row launched alone
+    (``launch_row(i)``, a batch of one), give ``out``'s bits."""
+    again = launch()
+    rows = torch.cat([launch_row(i) for i in range(out.shape[0])])
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        _fail(f"{kernel}[{name}]: two launches gave different bits")
+    if not torch.equal(out, rows):
+        _fail(f"{kernel}[{name}]: a row launched alone differs from its "
+              "row of the batched launch")
+
+
 # -------------------------------------------------------------- kernels
 
 
@@ -268,12 +283,19 @@ def kernel_phase(torch, timer):
         out = qkv_rope(x, w, pos, scale, **kw)
         torch.cuda.synchronize()
         ref = qkv_rope_reference(x, w, pos, scale, **kw)
+        # No atomics, and the K split depends on K and N only: two
+        # launches give the same bits, and so does each row alone.
+        same_bits(torch, "qkv_rope", name, out,
+                  lambda: qkv_rope(x, w, pos, scale, **kw),
+                  lambda i: qkv_rope(x[i:i + 1].clone(), w,
+                                     pos[i:i + 1].clone(), scale, **kw))
         nbytes = (x.numel() * 2 + w.numel() * w.element_size() + r * 4
                   + (n * 4 if int8 else 0) + r * n * 2)
         record("qkv_rope", name, out, ref, TOL_BF16,
                lambda: qkv_rope(x, w, pos, scale, **kw),
                lambda: qkv_rope_reference(x, w, pos, scale, **kw),
-               None, nbytes, 2 * r * k * n)
+               None, nbytes, 2 * r * k * n, bitwise_deterministic=True,
+               batch_invariant=True)
 
     # ---- decode attention: B=8, H=8, Hkv=2, hd=128, capacity 1280; and
     # the serve phase's own shape: capacity max_len=2048, each slot at
@@ -308,6 +330,21 @@ def kernel_phase(torch, timer):
         out = decode_attention(q, kc, vc, pos, **kw)
         torch.cuda.synchronize()
         ref = decode_attention_reference(q, kc, vc, pos, **kw)
+
+        def one_row(i, q=q, kc=kc, vc=vc, pos=pos, kw=kw):
+            rows_kw = {key: (val[i:i + 1].clone()
+                             if isinstance(val, torch.Tensor) else val)
+                       for key, val in kw.items()}
+            return decode_attention(q[i:i + 1].clone(),
+                                    kc[i:i + 1].clone(),
+                                    vc[i:i + 1].clone(),
+                                    pos[i:i + 1].clone(), **rows_kw)
+
+        # The slices meet in rank order, and a row's slices depend on its
+        # own live range only: the bits of two launches, and of each row
+        # alone at B=1, are the batched call's.
+        same_bits(torch, "decode_attention", name, out,
+                  lambda: decode_attention(q, kc, vc, pos, **kw), one_row)
         live = []
         for p in pos_list:
             if rolling:
@@ -337,7 +374,8 @@ def kernel_phase(torch, timer):
         record("decode_attention", name, out, ref, TOL_BF16,
                lambda: decode_attention(q, kc, vc, pos, **kw),
                lambda: decode_attention_reference(q, kc, vc, pos, **kw),
-               library, nbytes, flops)
+               library, nbytes, flops, bitwise_deterministic=True,
+               batch_invariant=True)
 
     # ---- flash forward: the empty-cache prefill, B=1, S=1024.
     s, d = 1024, 128

@@ -30,7 +30,8 @@
 //   other's partials through distributed shared memory and each finishes
 //   an equal share of the tile's outputs, summing the slices in rank
 //   order. One launch, no workspace, no atomics: two launches give the
-//   same bits.
+//   same bits. The stream and the block's sum are kn_stream.cuh's,
+//   shared with the fused QKV+RoPE (decode_qkv.cu).
 // - (N, K) layout (`transpose_w`, the tied head reading the (vocab, dim)
 //   embedding): each output column's dot product belongs to one warp,
 //   which walks the column's contiguous K row. A warp owns 16 columns and
@@ -40,22 +41,12 @@
 //   32768-column head is 512 blocks of 4 warps.
 // After the full sum the reference's op order: f32 dot, then * scale,
 // then residual + bf16(y).
-#include <cooperative_groups.h>
-
-#include "common.cuh"
-
-namespace cg = cooperative_groups;
+#include "kn_stream.cuh"
 
 namespace {
 
-constexpr int kMaxRows = 8;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-// (K, N) layout.
-constexpr int kTileN = 32;     // output columns of a block
-constexpr int kMaxSplit = 8;   // K slices of a column tile (a cluster)
-constexpr int kMinBlocks = 256;  // about two blocks for each of 132 SMs
-constexpr int kChunkK = 512;   // activation rows staged at a time
 // (N, K) layout.
 constexpr int kChunkNK = 1024;  // activation columns staged at a time
 constexpr int kUnrollNK = 8;    // 16-byte loads of a weight row in flight
@@ -63,55 +54,6 @@ constexpr int kUnrollNK = 8;    // 16-byte loads of a weight row in flight
 // Columns in one 16-byte load.
 template <typename WT>
 constexpr int kVec = 16 / (int)sizeof(WT);
-
-__device__ __forceinline__ uint4 load16(const void* p, bool valid) {
-  return valid ? __ldg(reinterpret_cast<const uint4*>(p))
-               : make_uint4(0u, 0u, 0u, 0u);
-}
-
-__device__ __forceinline__ void unpack(const uint4& u, float (&o)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    o[2 * i] = __low2float(h[i]);
-    o[2 * i + 1] = __high2float(h[i]);
-  }
-}
-
-__device__ __forceinline__ void unpack(const uint4& u, float (&o)[16]) {
-  const int8_t* b = reinterpret_cast<const int8_t*>(&u);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) o[i] = (float)b[i];
-}
-
-// Stages activation columns [kc, kc + kn) of the (rows, k) bf16 x into
-// xs[kMaxRows][C] as f32, zero past `rows` and `kn`: 16-byte loads,
-// every one issued before the first store (kn and kc multiples of 8).
-template <int C, int NT>
-__device__ __forceinline__ void stage_x(float (*xs)[C], const bf16* x,
-                                        int rows, int k, int kc, int kn,
-                                        int tid) {
-  constexpr int kPerRow = C / 8;
-  constexpr int kLoads = kMaxRows * kPerRow / NT;
-  uint4 v[kLoads];
-#pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int idx = tid + i * NT;
-    const int r = idx / kPerRow;
-    const int kk = (idx % kPerRow) * 8;
-    v[i] = load16(x + (size_t)r * k + kc + kk, r < rows && kk < kn);
-  }
-#pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const int idx = tid + i * NT;
-    float f[8];
-    unpack(v[i], f);
-    float4* dst =
-        reinterpret_cast<float4*>(&xs[idx / kPerRow][(idx % kPerRow) * 8]);
-    dst[0] = make_float4(f[0], f[1], f[2], f[3]);
-    dst[1] = make_float4(f[4], f[5], f[6], f[7]);
-  }
-}
 
 // One output's epilogue operands, read at the kernel's start so that
 // their latency hides under the weight stream: the channel scale (1 when
@@ -139,28 +81,6 @@ struct Epilogue {
   }
 };
 
-// One step of a warp's reduce-scatter over the lanes that differ in lane
-// bit OFF: each keeps one half of its first 2 * HALF sums (the upper
-// lane the upper half), adds its partner's copy of that half into acc's
-// first HALF, and recurses down to lane bit STOP. Every index is a
-// compile-time constant, so acc stays in registers.
-template <int OFF, int HALF, int STOP, int VC>
-__device__ __forceinline__ void reduce_scatter(float (&acc)[kMaxRows][VC],
-                                               int lane, int& base) {
-  if constexpr (OFF >= STOP) {
-    const bool upper = (lane & OFF) != 0;
-#pragma unroll
-    for (int i = 0; i < HALF; ++i) {
-      float& lo = acc[i / VC][i % VC];
-      const float hi = acc[(i + HALF) / VC][(i + HALF) % VC];
-      const float send = upper ? lo : hi;
-      lo = (upper ? hi : lo) + __shfl_xor_sync(0xffffffffu, send, OFF);
-    }
-    if (upper) base += HALF;
-    reduce_scatter<OFF / 2, HALF / 2, STOP>(acc, lane, base);
-  }
-}
-
 // Grid (slices, column tiles), launched as clusters of `slices` blocks
 // along x; block x of a cluster sums weight rows [x * slice, (x + 1) *
 // slice).
@@ -171,9 +91,7 @@ gemv_kn_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
                const bf16* __restrict__ residual, void* __restrict__ out,
                int rows, int k, int n, int slice) {
   constexpr int VC = kVec<WT>;
-  constexpr int TPR = kTileN / VC;     // threads on one weight row
-  constexpr int RPS = NT / TPR;       // weight rows a step covers
-  constexpr int kSteps = kChunkK / RPS;
+  constexpr int TPR = kTileN / VC;  // threads on one weight row
   __shared__ __align__(16) float xs[kMaxRows][kChunkK];
   __shared__ float part[NT / 32][kMaxRows][kTileN];
   __shared__ float total[kMaxRows * kTileN];  // this block's partial
@@ -182,12 +100,8 @@ gemv_kn_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
   const int split = (int)cluster.block_rank();
   const int nsplit = (int)cluster.num_blocks();
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
   const int c0 = blockIdx.y * kTileN;
-  const int group = tid % TPR;  // this thread's VC columns of the tile
-  const int phase = tid / TPR;  // and its first weight row of a step
-  const int col = c0 + group * VC;
+  const int col = c0 + (tid % TPR) * VC;  // this thread's VC columns
   const int k_lo = split * slice;
   const int k_hi = min(k, k_lo + slice);
   // Block `split` finishes outputs [split * share, (split + 1) * share)
@@ -203,57 +117,8 @@ gemv_kn_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
                             i / kTileN, c0 + i % kTileN, n, scale, residual);
   }
 
-  float acc[kMaxRows][VC];
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r)
-#pragma unroll
-    for (int c = 0; c < VC; ++c) acc[r][c] = 0.f;
-
-  for (int kc = k_lo; kc < k_hi; kc += kChunkK) {
-    const int kn = min(kChunkK, k_hi - kc);
-    uint4 wv[kSteps];
-#pragma unroll
-    for (int j = 0; j < kSteps; ++j) {
-      const int kk = phase + j * RPS;
-      wv[j] = load16(w + (size_t)(kc + kk) * n + col, kk < kn && col < n);
-    }
-    __syncthreads();  // the previous chunk's activations are consumed
-    stage_x<kChunkK, NT>(xs, x, rows, k, kc, kn, tid);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kSteps; ++j) {
-      const int kk = phase + j * RPS;
-      float wf[VC];
-      unpack(wv[j], wf);
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        const float xr = xs[r][kk];
-#pragma unroll
-        for (int c = 0; c < VC; ++c) acc[r][c] = fmaf(xr, wf[c], acc[r][c]);
-      }
-    }
-  }
-
-  // The block's sum. Within a warp, the lanes of one column group
-  // (lane bits TPR..16) reduce-scatter their R x VC sums: at each step a
-  // lane keeps one half, sends the other to its partner and adds what it
-  // receives, so it ends with 8 whole sums for 56 (bf16) or 120 (int8)
-  // shuffles, where a butterfly would take R x VC a step. Then the warps
-  // add in order through shared memory.
-  int base = 0;  // flat index in acc of this lane's first kept sum
-  reduce_scatter<16, kMaxRows * VC / 2, TPR>(acc, lane, base);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int idx = base + j;
-    part[warp][idx / VC][group * VC + idx % VC] = acc[j / VC][j % VC];
-  }
-  __syncthreads();
-  for (int i = tid; i < kMaxRows * kTileN; i += NT) {
-    float y = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < NT / 32; ++wi) y += part[wi][i / kTileN][i % kTileN];
-    total[i] = y;
-  }
+  kn_block_sum<WT, NT, VC>(x, w, rows, k, n, k_lo, k_hi, col < n ? col : -1,
+                           xs, part, total);
 
   // The cluster's sum: each owned output adds the slices' partials in
   // rank order, all read at once (0 past the cluster's last block).
@@ -276,21 +141,6 @@ gemv_kn_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
       epi[u].store(y, r, c, n, residual != nullptr, out);
   }
   cluster.sync();  // no block leaves while another reads its partial
-}
-
-// D(16 x 8) += A(16 x 16) B(16 x 8), bf16 in, f32 accumulate (mma.sync
-// m16n8k16: thread g = lane / 4, t = lane % 4 holds A rows g and g + 8 and
-// B column g, each at k pairs (2t, 2t+1) and (2t+8, 2t+9); D rows g, g + 8
-// at columns 2t, 2t + 1).
-__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0,
-                                          uint32_t a1, uint32_t a2,
-                                          uint32_t a3, uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_pair(int8_t lo, int8_t hi) {
@@ -405,34 +255,17 @@ gemv_nk_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
     e11.store(d[3], 2 * t + 1, cb, n, has_residual, out);
 }
 
-// Splits K until the grid holds about two blocks per SM (at least one
-// step of weight rows a slice) and launches the clusters.
+// Splits K until the grid holds about two blocks per SM (at least two
+// steps of weight rows a slice) and launches the clusters.
 template <typename WT, int NT>
 int launch_kn(const bf16* xp, const WT* wp, const float* sp, const bf16* rp,
               void* out, int rows, int k, int n, int tiles,
               cudaStream_t stream) {
   constexpr int kRowsPerStep = NT / (kTileN / kVec<WT>);
-  int nsplit = 1;
-  while (nsplit < kMaxSplit && tiles * nsplit < kMinBlocks &&
-         k >= 2 * nsplit * kRowsPerStep)
-    nsplit *= 2;
-  const int slice = ((k + nsplit - 1) / nsplit + 15) / 16 * 16;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nsplit, tiles);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = nsplit;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, gemv_kn_kernel<WT, NT>, xp, wp,
-                                       sp, rp, out, rows, k, n, slice);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const int nsplit = kn_splits(tiles, k, kRowsPerStep);
+  return launch_clusters(gemv_kn_kernel<WT, NT>, nsplit, tiles, NT, 0,
+                         stream, xp, wp, sp, rp, out, rows, k, n,
+                         kn_slice(k, nsplit));
 }
 
 template <typename WT>

@@ -58,6 +58,28 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// ldmatrix: four (x4) or two (x2) 8 x 8 bf16 matrices from shared memory,
+// lanes 8i..8i+7 giving the 16-byte row addresses of matrix i. Lane l
+// receives of each matrix row l / 4 at columns 2(l % 4), 2(l % 4) + 1, or
+// with .trans column l / 4 at rows 2(l % 4), 2(l % 4) + 1: the mma.sync
+// m16n8k16 fragment layouts (common.cuh).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1,
+                                            uint32_t& r2, uint32_t& r3,
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(addr)
+      : "memory");
+}
 // Makes this thread's generic-proxy shared-memory writes (cp.async,
 // plain stores) visible to wgmma's async-proxy reads; a barrier follows.
 __device__ __forceinline__ void fence_proxy_async() {

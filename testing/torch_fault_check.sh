@@ -19,6 +19,10 @@
 # fwd_diagonal    flash_fwd.cu: the forward's causal mask shifted by one key
 # fwd_last_tile   flash_fwd.cu: the forward skips its last live key tile
 # gemv_last_split gemv.cu: the (K, N) GEMV drops its last K slice's partial
+# decode_last_slice decode_attention.cu: the cluster's combine drops the
+#                 last slice of every row's live range
+# qkv_rope_partner decode_qkv.cu: each pair takes its partner's sum from
+#                 the wrong tile column (RoPE rotates with the wrong partner)
 set -uo pipefail
 
 fault=${1:?usage: $0 <fault> (see the header)}
@@ -30,6 +34,8 @@ case $fault in
   fwd_diagonal) file=flash_fwd.cu expr='s/pair_live(row, col,/pair_live(row, col + 1,/' ;;
   fwd_last_tile) file=flash_fwd.cu expr='s/while (k0 < k_end) {/while (k0 + kTile < k_end) {/' ;;
   gemv_last_split) file=gemv.cu expr='s/src < nsplit ?/src < nsplit - 1 ?/' ;;
+  decode_last_slice) file=decode_attention.cu expr='s/const float f = ls\[src\] > 0.f ?/const float f = ls[src] > 0.f \&\& src < kSplit - 1 ?/' ;;
+  qkv_rope_partner) file=decode_qkv.cu expr='s/const int t2 = t1 + kTilePairs;/const int t2 = t1 + kTilePairs - 1;/' ;;
   *) echo "unknown fault: $fault" >&2; exit 2 ;;
 esac
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time variants of the port's flash forward and GEMV, each with one part
-taken out, beside the unmodified kernel, in one process on one card.
+"""Time variants of the port's flash forward, GEMV, fused QKV+RoPE and
+decode attention, each with one part taken out or one choice changed,
+beside the unmodified kernel, in one process on one card.
 
 A variant is the kernel source with one ``sed`` expression applied (the
 copies live under ``build/kernel_variants/``; the repo is never edited).
@@ -8,13 +9,15 @@ Each source is built alone into its own library with the build's flags
 and called through the same C entry, so the differences between the
 times say what each part costs at the main path's shapes: the forward at
 the training shape with lse and at the flagship's prefill, the GEMV at
-the decode step's projections and the tied head. The outputs of a
-variant are wrong by design and are not checked.
+the decode step's projections and the tied head, the fused QKV+RoPE and
+decode attention at the kernel phase's flagship and serve shapes. The
+outputs of a variant are wrong by design and are not checked.
 
 Run from the root of a checkout on a machine with one H100 and nvcc:
-``python3 testing/torch_kernel_variants.py``. Prints one JSON line per
-shape (device ms, CUDA events, L2 flushed before each launch, as in
-``chip_smoke.py``) and the card's name and power limit.
+``python3 testing/torch_kernel_variants.py [source.cu ...]`` (default:
+every source below). Prints one JSON line per shape (device ms, CUDA
+events, L2 flushed before each launch, as in ``chip_smoke.py``) and the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -50,21 +53,49 @@ VARIANTS = {
         "base": None,
         "empty": r"s/^  cg::cluster_group cluster = cg::this_cluster();"
                  r"/  if (rows > 0) return;\n&/",
-        "one_slice": r"s/while (nsplit < kMaxSplit &&/while (false \&\&/",
+        "one_slice": r"s/const int nsplit = kn_splits(tiles, k, kRowsPerStep);"
+                     r"/const int nsplit = 1;/",
         "no_cluster_sum": r"s/    if (tid + u \* NT >= share) break;/    break;/",
         "threads_128": r"s/if (2 \* tiles >= kMinBlocks)/if (false)/",
         "threads_256": r"s/  return launch_kn<WT, kThreads>(xp/"
                        r"  return launch_kn<WT, 2 * kThreads>(xp/",
     },
+    "decode_qkv.cu": {
+        "base": None,
+        "eight_slices": r"s/constexpr int kMaxSlices = 4;"
+                        r"/constexpr int kMaxSlices = 8;/",
+        "two_slices": r"s/constexpr int kMaxSlices = 4;"
+                      r"/constexpr int kMaxSlices = 2;/",
+        "no_rope": r"s/const bool rotate = c1 < rope_cols;"
+                   r"/const bool rotate = false;/",
+    },
+    "decode_attention.cu": {
+        "base": None,
+        "two_stages": r"s/constexpr int kStages = 3; /constexpr int kStages = 2; /",
+        "four_stages": r"s/constexpr int kStages = 3; /constexpr int kStages = 4; /",
+        "tile_32": r"s/HD == 256 ? 32 : 64;/HD == 256 ? 32 : 32;/",
+        "no_combine": r"s/  for (int e = split \* share + tid;/  for (int e = 1 << 30;/",
+        "no_loads": r"s/for (int j = 0; j < kCopies \/ kThreads; ++j) {"
+                    r"/for (int j = 0; j < 0; ++j) {/",
+        "sixteen_slices": r"s/constexpr int kSplit = 8; /constexpr int kSplit = 16; /;"
+                          r"s/  if (B \* Hkv == 0) return 0;/  cudaFuncSetAttribute("
+                          r"decode_attention_kernel<HD, KT>, "
+                          r"cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n&/",
+    },
 }
+# The C entry each source's library is called through.
+ENTRIES = {"flash_fwd.cu": "kft_flash_fwd", "gemv.cu": "kft_gemv",
+           "decode_qkv.cu": "kft_qkv_rope",
+           "decode_attention.cu": "kft_decode_attention"}
 
 
-def build_variants() -> dict[tuple[str, str], ctypes.CDLL]:
+def build_variants(sources) -> dict[tuple[str, str], ctypes.CDLL]:
     """One library per (source, variant), all compiled in parallel."""
     shutil.rmtree(WORK, ignore_errors=True)
     nvcc = _build._nvcc()
     procs = {}
-    for source, table in VARIANTS.items():
+    for source in sources:
+        table = VARIANTS[source]
         for name, expr in table.items():
             copy = WORK / f"{Path(source).stem}_{name}"
             shutil.copytree(_build.SRC_DIR, copy)
@@ -87,7 +118,7 @@ def build_variants() -> dict[tuple[str, str], ctypes.CDLL]:
             raise SystemExit(f"variant {source}:{name} failed to build:\n"
                              f"{output}")
         lib = ctypes.CDLL(str(WORK / f"{Path(source).stem}_{name}" / "lib.so"))
-        entry = "kft_flash_fwd" if source == "flash_fwd.cu" else "kft_gemv"
+        entry = ENTRIES[source]
         getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
         libs[(source, name)] = lib
     return libs
@@ -99,7 +130,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    libs = build_variants()
+    sources = sys.argv[1:] or list(VARIANTS)
+    unknown = set(sources) - set(VARIANTS)
+    if unknown:
+        print(f"no variants for {sorted(unknown)}", file=sys.stderr)
+        return 2
+    libs = build_variants(sources)
     timer = chip_smoke.Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -162,6 +198,59 @@ def main() -> int:
         wmat = w.t() if transpose else w
         row["matmul"] = (None if int8 else
                          timer(lambda: torch.matmul(x, wmat)))
+        print(json.dumps(row), flush=True)
+    for case, int8 in [("flagship", 0), ("int8", 1)]:
+        x = randn(8, 1024)
+        w = randn(1024, 1536, std=1024 ** -0.5)
+        scale = None
+        if int8:
+            scale = (w.float().abs().amax(0) / 127.0).contiguous()
+            w = torch.round(w.float() / scale).to(torch.int8)
+        pos = torch.tensor([0, 1, 17, 255, 256, 1000, 1279, 513],
+                           dtype=torch.int32, device="cuda")
+        out = torch.empty(8, 1536, device="cuda", dtype=torch.bfloat16)
+        row = {"kernel": "qkv_rope", "case": case}
+        for (source, name), lib in libs.items():
+            if source != "decode_qkv.cu":
+                continue
+
+            def call(lib=lib):
+                return lib.kft_qkv_rope(ptr(x), ptr(w), ptr(scale), ptr(pos),
+                                        ptr(out), 8, 1024, 1536, 128,
+                                        10 * 128, 10000.0, int8, stream)
+
+            _build.check(call(), name)
+            row[name] = timer(call)
+        print(json.dumps(row), flush=True)
+    n = chip_smoke.SERVE_LENGTHS
+    serve_pos = [p + 62 for p in (n[0], n[1], n[2], n[3], n[4], n[0], n[5],
+                                  n[5] + n[6])]
+    for case, cap, int8, pos_list in [
+            ("serve_shape", 2048, 0, serve_pos),
+            ("int8", 1280, 1, [0, 100, 255, 256, 700, 1279, 1000, 513])]:
+        q = randn(8, 8, 1, 128)
+        kc, vc = randn(8, 2, cap, 128), randn(8, 2, cap, 128)
+        ks = vs = None
+        if int8:
+            ks = (kc.float().abs().amax(-1, keepdim=True) / 127.0)
+            vs = (vc.float().abs().amax(-1, keepdim=True) / 127.0)
+            kc = torch.round(kc.float() / ks).to(torch.int8)
+            vc = torch.round(vc.float() / vs).to(torch.int8)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+        out = torch.empty_like(q)
+        row = {"kernel": "decode_attention", "case": case}
+        for (source, name), lib in libs.items():
+            if source != "decode_attention.cu":
+                continue
+
+            def call(lib=lib):
+                return lib.kft_decode_attention(
+                    ptr(q), ptr(kc), ptr(vc), ptr(ks), ptr(vs), ptr(pos),
+                    ptr(out), 8, 8, 2, cap, 128, 0, 0, 128 ** -0.5, int8,
+                    stream)
+
+            _build.check(call(), name)
+            row[name] = timer(call)
         print(json.dumps(row), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

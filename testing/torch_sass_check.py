@@ -5,10 +5,12 @@ Builds the kernel library (``kubeflow_tpu_torch/ops/_build.py``) and reads
 its SASS with ``cuobjdump -sass``: prints, for every kernel instance, how
 many HGMMA (wgmma) and HMMA (mma.sync) instructions it holds, and exits 1
 when an instance of a flash kernel (``flash_fwd_kernel``,
-``flash_dq_kernel``, ``flash_dkv_kernel``) holds none. Instances are
-named by their template arguments (``flash_fwd_kernel<128,2>``: head dim
-128, two warpgroups). Run from the root of a checkout on a machine with the CUDA
-toolkit: ``python3 testing/torch_sass_check.py``.
+``flash_dq_kernel``, ``flash_dkv_kernel``) or of decode attention
+(``decode_attention_kernel``) holds none. Instances are named by their
+template arguments (``flash_fwd_kernel<128>``: head dim 128;
+``decode_attention_kernel<128,int8>``: head dim 128, an int8 cache).
+Run from the root of a checkout on a machine with the CUDA toolkit:
+``python3 testing/torch_sass_check.py``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from kubeflow_tpu_torch.ops import _build  # noqa: E402
 
 TENSOR_CORE_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel",
-                       "flash_dkv_kernel")
+                       "flash_dkv_kernel", "decode_attention_kernel")
+# Mangled template arguments: an int, or one of these types.
+TYPES = {"13__nv_bfloat16": "bf16", "a": "int8"}
 
 
 def main() -> int:
@@ -38,12 +42,16 @@ def main() -> int:
     for line in sass.splitlines():
         found = re.search(r"Function : (\S+)", line)
         if found:
-            # mangled: ...<length><name>ILi<head dim>ELi<...>E...
+            # mangled: ...<length><name>I<args>E..., each argument
+            # Li<int>E or a type (13__nv_bfloat16, a for int8_t)
             short = re.search(r"(?<![a-z])([a-z]+(?:_[a-z]+)*_kernel)"
-                              r"(?:I((?:Li\d+E)+))?", found.group(1))
+                              r"(?:I((?:Li\d+E|13__nv_bfloat16|a)+)E)?",
+                              found.group(1))
             name = found.group(1)
             if short:
-                args = re.findall(r"\d+", short.group(2) or "")
+                args = [TYPES.get(tok, tok.strip("LiE")) for tok in
+                        re.findall(r"Li\d+E|13__nv_bfloat16|a",
+                                   short.group(2) or "")]
                 name = short.group(1) + (f"<{','.join(args)}>"
                                          if args else "")
             counts[name] = {"HGMMA": 0, "HMMA": 0}

@@ -145,46 +145,192 @@ def test_gemv_kernel_is_deterministic(card, case):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("hd,heads,kv", [(128, 8, 2), (40, 3, 1), (16, 4, 2)])
-def test_qkv_rope_kernel_writes_every_column(card, hd, heads, kv):
+# (rows, k, head_dim, heads, kv_heads, int8): every column written at one
+# and eight rows, at head dims whose half takes 16-byte loads (128, 256,
+# 16 in bf16), 8-byte (40 in bf16, 16 in int8) or single-element ones (an
+# odd half), with int8 weights, and with a K that is no multiple of 8
+# (activations staged one element a load).
+QKV_CASES = {
+    "hd128": (3, 256, 128, 8, 2, False),
+    "hd40": (3, 256, 40, 3, 1, False),
+    "hd16": (3, 256, 16, 4, 2, False),
+    "one_row_flagship": (1, 1024, 128, 8, 2, False),
+    "eight_rows_flagship": (8, 1024, 128, 8, 2, False),
+    "eight_rows_hd256": (8, 512, 256, 4, 2, False),
+    "one_row_hd40": (1, 256, 40, 3, 1, False),
+    "eight_rows_hd16": (8, 256, 16, 4, 2, False),
+    "int8_flagship": (8, 1024, 128, 8, 2, True),
+    "int8_hd40": (5, 256, 40, 3, 1, True),
+    "int8_hd16_one_row": (1, 256, 16, 4, 2, True),
+    "odd_half": (4, 96, 6, 3, 1, False),
+    "k_not_multiple_of_8": (6, 100, 64, 4, 2, True),
+}
+
+
+def _qkv_inputs(gen, case, rows=None):
+    n_rows, k, hd, heads, kv, int8 = QKV_CASES[case]
+    rows = rows or n_rows
+    n = (heads + 2 * kv) * hd
+    x = _randn(gen, rows, k)
+    w = _randn(gen, k, n, std=k ** -0.5)
+    scale = None
+    if int8:
+        scale = w.float().abs().amax(dim=0) / 127.0
+        w = torch.round(w.float() / scale).to(torch.int8)
+    pos = torch.randint(0, 2048, (rows,), dtype=torch.int32, device="cuda",
+                        generator=gen)
+    return (x, w, pos, scale), dict(head_dim=hd, rope_heads=heads + kv)
+
+
+@pytest.mark.parametrize("case", sorted(QKV_CASES))
+def test_qkv_rope_kernel_writes_every_column(card, case):
+    from kubeflow_tpu_torch.ops import _build
     from kubeflow_tpu_torch.ops.decode_qkv import qkv_rope, qkv_rope_reference
 
-    n = (heads + 2 * kv) * hd
-    x = _randn(card, 3, 256)
-    w = _randn(card, 256, n, std=256 ** -0.5)
-    pos = torch.tensor([0, 9, 700], dtype=torch.int32, device="cuda")
-    out = qkv_rope(x, w, pos, head_dim=hd, rope_heads=heads + kv)
+    args, kw = _qkv_inputs(card, case)
+    before = _build.LAUNCHES["qkv_rope"]
+    out = qkv_rope(*args, **kw)
     torch.cuda.synchronize()
+    assert _build.LAUNCHES["qkv_rope"] == before + 1
     assert torch.isfinite(out.float()).all()
-    _assert_close(out, qkv_rope_reference(x, w, pos, head_dim=hd,
-                                          rope_heads=heads + kv), TOL_BF16)
+    _assert_close(out, qkv_rope_reference(*args, **kw), TOL_BF16)
 
 
-@pytest.mark.parametrize("int8,rolling,window,cap", [
-    (False, False, None, 300), (True, False, None, 300),
-    (False, False, 64, 300), (False, True, 128, 128), (True, True, 128, 128)])
-def test_decode_attention_kernel_matches_twin(card, int8, rolling, window,
-                                              cap):
-    from kubeflow_tpu_torch.ops.decode_attention import (
-        decode_attention,
-        decode_attention_reference,
-    )
+@pytest.mark.parametrize("case", ["eight_rows_flagship", "int8_flagship",
+                                  "hd40"])
+def test_qkv_rope_kernel_is_deterministic(card, case):
+    """The K slices meet in rank order, no atomics: two launches give the
+    same bits."""
+    from kubeflow_tpu_torch.ops.decode_qkv import qkv_rope
 
-    q = _randn(card, 4, 8, 1, 64)
-    kc, vc = _randn(card, 4, 2, cap, 64), _randn(card, 4, 2, cap, 64)
+    args, kw = _qkv_inputs(card, case)
+    first, second = qkv_rope(*args, **kw), qkv_rope(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("case", ["eight_rows_flagship", "int8_flagship",
+                                  "hd40"])
+def test_qkv_rope_kernel_is_batch_invariant(card, case):
+    """Each row alone (one row, its own position) gives the same bits as
+    its row of the eight-row call: the K split depends on K and N only."""
+    from kubeflow_tpu_torch.ops.decode_qkv import qkv_rope
+
+    (x, w, pos, scale), kw = _qkv_inputs(card, case, rows=8)
+    batch = qkv_rope(x, w, pos, scale, **kw)
+    rows = [qkv_rope(x[i:i + 1].clone(), w, pos[i:i + 1].clone(), scale, **kw)
+            for i in range(8)]
+    torch.cuda.synchronize()
+    assert torch.equal(batch, torch.cat(rows))
+
+
+# (int8, rolling, window, capacity, head_dim, heads, kv_heads, positions):
+# the first five at head dim 64 with positions (0, 17, cap - 1, 200 or a
+# wrapped ring position); then every head dim and groups 1, 4 and 8;
+# capacity 2048 with rows of fewer live positions than the kernel's 8
+# slices (0, 1, 7: empty slices), slices of unequal length and pos = cap
+# - 1; capacities that are no multiple of a tile (1280, 1000); int8 and
+# rolling at capacity >= 512, int8 at the 32-byte rows of head dim 32; a
+# window that starts inside a tile.
+DECODE_CASES = {
+    "linear": (False, False, None, 300, 64, 8, 2, None),
+    "int8": (True, False, None, 300, 64, 8, 2, None),
+    "window": (False, False, 64, 300, 64, 8, 2, None),
+    "rolling": (False, True, 128, 128, 64, 8, 2, None),
+    "int8_rolling": (True, True, 128, 128, 64, 8, 2, None),
+    "hd128_group4_cap2048": (False, False, None, 2048, 128, 8, 2,
+                             (0, 1, 7, 2047, 1086, 318, 9, 1500)),
+    "hd32_group1_cap1000": (False, False, None, 1000, 32, 2, 2,
+                            (0, 5, 999, 640, 8)),
+    "hd256_group8_cap1280": (False, False, None, 1280, 256, 8, 1,
+                             (0, 1279, 700, 15)),
+    "hd64_group8_cap1000": (False, False, None, 1000, 64, 16, 2,
+                            (3, 999, 57, 421)),
+    "int8_hd128_cap1280": (True, False, None, 1280, 128, 8, 2,
+                           (0, 1, 7, 1279, 513, 1000, 64, 65)),
+    "int8_hd32_cap1000": (True, False, None, 1000, 32, 4, 1,
+                          (0, 999, 31, 500)),
+    "int8_hd256_cap512": (True, False, None, 512, 256, 4, 2, (511, 2, 260)),
+    "rolling_cap512": (False, True, 512, 512, 128, 8, 2,
+                       (0, 100, 511, 512, 700, 1279, 2000, 333)),
+    "int8_rolling_cap1000": (True, True, 1000, 1000, 64, 4, 1,
+                             (3, 999, 1000, 2500)),
+    "window_inside_a_tile": (False, False, 300, 2048, 128, 8, 2,
+                             (1500, 250, 299, 300, 2047, 301)),
+}
+
+
+def _decode_inputs(gen, case, positions=None):
+    int8, rolling, window, cap, hd, h, hkv, pos = DECODE_CASES[case]
+    if pos is None:
+        pos = (0, 17, cap - 1, 3 * cap + 5 if rolling else 200)
+    pos = positions or pos
+    b = len(pos)
+    q = _randn(gen, b, h, 1, hd)
+    kc, vc = _randn(gen, b, hkv, cap, hd), _randn(gen, b, hkv, cap, hd)
     ks = vs = None
     if int8:
         ks = kc.float().abs().amax(-1, keepdim=True) / 127.0
         vs = vc.float().abs().amax(-1, keepdim=True) / 127.0
         kc = torch.round(kc.float() / ks).to(torch.int8)
         vc = torch.round(vc.float() / vs).to(torch.int8)
-    pos = torch.tensor([0, 17, cap - 1, 3 * cap + 5 if rolling else 200],
-                       dtype=torch.int32, device="cuda")
-    kw = dict(window=window, k_scale=ks, v_scale=vs, rolling=rolling)
-    out = decode_attention(q, kc, vc, pos, **kw)
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    return (q, kc, vc, pos), dict(window=window, k_scale=ks, v_scale=vs,
+                                  rolling=rolling)
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_attention_kernel_matches_twin(card, case):
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.ops.decode_attention import (
+        decode_attention,
+        decode_attention_reference,
+    )
+
+    args, kw = _decode_inputs(card, case)
+    before = _build.LAUNCHES["decode_attention"]
+    out = decode_attention(*args, **kw)
     torch.cuda.synchronize()
-    _assert_close(out, decode_attention_reference(q, kc, vc, pos, **kw),
-                  TOL_BF16)
+    assert _build.LAUNCHES["decode_attention"] == before + 1
+    _assert_close(out, decode_attention_reference(*args, **kw), TOL_BF16)
+
+
+@pytest.mark.parametrize("case", ["hd128_group4_cap2048",
+                                  "int8_hd128_cap1280", "rolling_cap512"])
+def test_decode_attention_kernel_is_deterministic(card, case):
+    """The slices meet in rank order, no atomics: two launches give the
+    same bits."""
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+
+    args, kw = _decode_inputs(card, case)
+    first, second = decode_attention(*args, **kw), decode_attention(*args,
+                                                                    **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("case", ["hd128_group4_cap2048",
+                                  "int8_hd128_cap1280", "rolling_cap512",
+                                  "window_inside_a_tile"])
+def test_decode_attention_kernel_is_batch_invariant(card, case):
+    """Each row alone, at B=1 and its own position, gives the same bits as
+    its row of the batched call: a row's slices depend on its own live
+    range only (the engine decodes at B=8, generate() at B=1)."""
+    from kubeflow_tpu_torch.ops.decode_attention import decode_attention
+
+    (q, kc, vc, pos), kw = _decode_inputs(card, case)
+    batch = decode_attention(q, kc, vc, pos, **kw)
+    rows = []
+    for i in range(q.shape[0]):
+        one = {key: (val[i:i + 1].clone()
+                     if isinstance(val, torch.Tensor) else val)
+               for key, val in kw.items()}
+        rows.append(decode_attention(q[i:i + 1].clone(),
+                                     kc[i:i + 1].clone(),
+                                     vc[i:i + 1].clone(),
+                                     pos[i:i + 1].clone(), **one))
+    torch.cuda.synchronize()
+    assert torch.equal(batch, torch.cat(rows))
 
 
 @pytest.mark.parametrize("causal,window,segmented,sq", [

@@ -31,6 +31,8 @@ PLANTS = {
     "fwd_diagonal": ("flash_fwd.cu", 1, "pair_live(row, col + 1,"),
     "fwd_last_tile": ("flash_fwd.cu", 1, "while (k0 + kTile < k_end) {"),
     "gemv_last_split": ("gemv.cu", 1, "src < nsplit - 1 ?"),
+    "decode_last_slice": ("decode_attention.cu", 1, "src < kSplit - 1 ?"),
+    "qkv_rope_partner": ("decode_qkv.cu", 1, "t1 + kTilePairs - 1;"),
 }
 
 
