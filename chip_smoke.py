@@ -15,8 +15,10 @@ Phases (a failed phase raises; nothing is caught):
    the two backward kernels, at the training shape (batch 4, 8 heads,
    S=2048, head dim 128) and four more masks (SDPA's forward and backward
    as the library calls), element by element within the stated tolerance
-   (see ``check_close``); two launches of the GEMV must give equal bits
-   (tied head, down projection), and so must two launches of the fused
+   (see ``check_close``); the GEMV's int8 cases launch as the model
+   does (scale in the kernel with a residual, after it without); two
+   launches of the GEMV must give equal bits (tied head in bf16 and
+   int8, down projection), and so must two launches of the fused
    QKV+RoPE and of decode attention, and each of their rows launched
    alone (a batch of one) must equal its row of the batch; kernel, twin and
    library-call times (CUDA events, median of repeated launches, L2
@@ -30,9 +32,27 @@ Phases (a failed phase raises; nothing is caught):
    port's ``generate``; every kernel's launch counter must rise; the
    prefill and first decode-step logits with kernels (bf16) must agree
    with the plain path in f32.
-3. trace: the same requests on a fresh engine under ``torch.profiler``:
-   device time per kernel and the device's idle share.
-4. train: the 8x1024 MHA LM that ``bench.py``'s ``lm`` mode trains
+3. int8: C1 first, an int8 KV cache at capacity 15 (each layer's
+   scale slice 120 bytes past the last) through ``generate`` on the card,
+   equal to the same call on the CPU; then ``quantize_decode_params`` of
+   the serve params through a fresh engine with the launch counters
+   zeroed: the 8 requests stream equal to ``generate(quantize_weights=
+   True)``, the GEMV and the fused QKV+RoPE launch on int8 weights, and
+   the prefill and first-decode logits agree with the f32 plain path on
+   the dequantised weights (w8 * scale) within TOL_LOGITS.
+4. gateway: a fresh engine behind ``InferenceGateway``; the 8 requests
+   over HTTP from 8 client threads at once: every SSE frame parses and
+   every stream equals the serve phase's; one ``stream: false`` request,
+   one 400, ``/healthz`` and ``/readyz``; ``/metrics`` read back with the
+   port's own parser (``inference_ttft_seconds`` counts every request);
+   client-side TTFT and inter-token gaps. Then the pod entrypoint,
+   ``python -m kubeflow_tpu_torch.serving`` at the flagship's dims as its
+   own process: ready, one greedy request equal to ``generate``, exit 0
+   on SIGTERM.
+5. trace: the same requests on a fresh engine under ``torch.profiler``:
+   device time per kernel and the device's idle share; then again on the
+   int8 weights (``trace_int8``).
+6. train: the 8x1024 MHA LM that ``bench.py``'s ``lm`` mode trains
    (vocab 32768, bf16 compute, f32 parameters from seed 0, AdamW with a
    bf16 first moment) at batch 4 x 2048 tokens: the step-0 loss and
    gradients of the kernel path against ``build_lm(use_flash=False)``,
@@ -82,6 +102,11 @@ SERVE_LENGTHS = (1024, 768, 512, 256, 640, 384, 128)
 NEW_TOKENS = 64
 SERVE_KERNELS = ("flash_attention", "gemv", "qkv_rope", "decode_attention")
 TRAIN_KERNELS = ("flash_attention", "flash_dq", "flash_dkv")
+# Gateway phase: the longest any one HTTP call may take, and how long the
+# pod entrypoint may take to answer /readyz (torch import, card init, a
+# seeded init of 121M parameters, the kernel library loaded).
+GATEWAY_TIMEOUT_S = 300
+POD_READY_TIMEOUT_S = 300
 # Train phase: bench.py's lm mode (KFT_BENCH_MODE=lm) at its defaults.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
 # Step-0 gradients of the kernel path (bf16 flash, o/p/ds rounded to
@@ -228,24 +253,32 @@ def kernel_phase(torch, timer):
             "bound_ms": b_ms, "bound_by": b_by, **extra})
 
     # ---- gemv: the decode step's projections and the tied head (R=8).
+    # The int8 cases launch as ``models.decoding._mm`` does: with a
+    # residual the kernel takes the scale; without one it takes none
+    # (the model multiplies ``y * scale`` after), so the no-residual
+    # cases hold the kernel's own output, the f32 dot, to its twin.
     r = 8
     for name, k, n, residual, transpose, int8 in [
             ("proj_residual", 1024, 1024, True, False, False),
             ("up", 1024, 4096, False, False, False),
             ("down_residual", 4096, 1024, True, False, False),
             ("tied_head", 1024, 32768, False, True, False),
-            ("int8_residual", 1024, 4096, True, False, True)]:
+            ("int8_residual", 1024, 4096, True, False, True),
+            ("int8_up", 1024, 4096, False, False, True),
+            ("int8_tied_head", 1024, 32768, False, True, True)]:
         x = randn(r, k)
         w = randn(*((n, k) if transpose else (k, n)), std=k ** -0.5)
         scale = None
         if int8:
             w, scale = quantize_cols(w, 1 if transpose else 0)
+            if not residual:
+                scale = None
         res = randn(r, n) if residual else None
         out = gemv(x, w, scale, res, transpose_w=transpose)
         torch.cuda.synchronize()
         ref = gemv_reference(x, w, scale, res, transpose_w=transpose)
         extra = {}
-        if name in ("tied_head", "down_residual"):
+        if name in ("tied_head", "down_residual", "int8_tied_head"):
             # No atomics: the K slices meet in a fixed order.
             again = gemv(x, w, scale, res, transpose_w=transpose)
             torch.cuda.synchronize()
@@ -256,7 +289,8 @@ def kernel_phase(torch, timer):
         library = (None if int8 else (lambda x=x, wmat=wmat:
                                       torch.matmul(x, wmat)))
         nbytes = (x.numel() * 2 + w.numel() * w.element_size()
-                  + (n * 4 if int8 else 0) + (r * n * 2 if residual else 0)
+                  + (n * 4 if scale is not None else 0)
+                  + (r * n * 2 if residual else 0)
                   + r * n * (2 if residual else 4))
         record("gemv", name, out, ref, TOL_BF16 if residual else TOL_F32,
                lambda: gemv(x, w, scale, res, transpose_w=transpose),
@@ -599,29 +633,11 @@ def stream(torch, engine, prompts, temps, seeds):
     return events, time.perf_counter() - started
 
 
-def serve_phase(torch, cfg):
-    """The engine run at full width: every kernel must launch, greedy
-    streams equal ``generate``, the kernel path's logits agree with the
-    plain path in f32."""
-    from kubeflow_tpu_torch.models.decoding import (
-        KVCache,
-        forward_with_cache,
-        generate,
-    )
-    from kubeflow_tpu_torch.models.transformer import init_params, param_count
-    from kubeflow_tpu_torch.ops import _build
-    from kubeflow_tpu_torch.serving import make_engine
-
-    params = init_params(cfg, seed=0, device="cuda", dtype=cfg.dtype)
-    prompts, temps, seeds = serve_requests(torch, cfg)
-    engine = make_engine(cfg, params, max_batch=8, max_len=2048)
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    events, wall = stream(torch, engine, prompts, temps, seeds)
-    launches = dict(_build.LAUNCHES)
-    for name in SERVE_KERNELS:
-        if launches[name] <= 0:
-            _fail(f"kernel {name} was never launched on the serving path")
+def check_streams(cfg, events, prompts, temps, seeds, params, **gen_kw):
+    """Every request's stream is whole and in vocabulary, the prefix-cache
+    pairs hit, and requests 0-6 equal ``generate`` on ``params`` (with
+    ``gen_kw``); returns (outputs, cache hits)."""
+    from kubeflow_tpu_torch.models.decoding import generate
 
     outputs = [next(e for e in ev if e.get("done"))["tokens"]
                for ev in events]
@@ -636,41 +652,46 @@ def serve_phase(torch, cfg):
         _fail(f"prefix-cache pairs missed the cache: {hits}")
     for i in range(7):
         ref = generate(cfg, params, [prompts[i]], NEW_TOKENS,
-                       temperature=temps[i], rng=seeds[i])[0].tolist()
+                       temperature=temps[i], rng=seeds[i],
+                       **gen_kw)[0].tolist()
         if ref != outputs[i]:
             first = next(j for j, (a, b) in enumerate(zip(ref, outputs[i]))
                          if a != b)
             _fail(f"request {i} (temperature {temps[i]}) diverged from "
-                  f"generate() at token {first}")
+                  f"generate({gen_kw or ''}) at token {first}")
+    return outputs, hits
 
-    # Kernel path (bf16) vs the plain path in f32, on one request's
-    # prefill and first decode step.
-    prompt = torch.tensor([prompts[3]], device="cuda")
-    cache = KVCache.init(cfg, 1, len(prompts[3]) + 8)
+
+def logits_vs_plain(torch, cfg, params, params32, tokens):
+    """Prefill and first-decode logits of the kernel path (bf16 on the
+    card) against the plain path in f32 on ``params32``; fails past
+    TOL_LOGITS or on a non-finite logit. Returns (errors, scales)."""
+    from kubeflow_tpu_torch.models.decoding import KVCache, forward_with_cache
+
+    prompt = torch.tensor([tokens], device="cuda")
+    cache = KVCache.init(cfg, 1, len(tokens) + 8)
     lk1, cache = forward_with_cache(cfg, params, prompt, cache,
                                     last_logits_only=True)
     nxt = lk1[:, -1].argmax(-1, keepdim=True)
     lk2, _ = forward_with_cache(cfg, params, nxt, cache)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
-    params32 = {key: {n: {leaf: t.float() for leaf, t in sub.items()}
-                      for n, sub in val.items()}
-                if key.startswith("block_")
-                else {leaf: t.float() for leaf, t in val.items()}
-                for key, val in params.items()}
-    cache32 = KVCache.init(cfg32, 1, len(prompts[3]) + 8)
+    cache32 = KVCache.init(cfg32, 1, len(tokens) + 8)
     lp1, cache32 = forward_with_cache(cfg32, params32, prompt, cache32,
                                       last_logits_only=True)
     lp2, _ = forward_with_cache(cfg32, params32, nxt, cache32)
     torch.cuda.synchronize()
-    logit_err = [max_err(lk1, lp1), max_err(lk2, lp2)]
-    logit_scale = [float(lp1.abs().max()), float(lp2.abs().max())]
-    for err in logit_err:
+    errs = [max_err(lk1, lp1), max_err(lk2, lp2)]
+    for err in errs:
         if not err <= TOL_LOGITS:
             _fail(f"kernel-path logits differ from the f32 plain path by "
                   f"{err} > {TOL_LOGITS}")
     if not all(torch.isfinite(t).all() for t in (lk1, lk2)):
         _fail("non-finite logits")
+    return errs, [float(lp1.abs().max()), float(lp2.abs().max())]
 
+
+def engine_rates(engine, cfg, prompts, outputs, launches) -> dict:
+    """Prefill and decode rates of one engine run from its profiler."""
     # Prompt tokens the model actually ran: request 5 adopts request 0's
     # cached prefill whole, request 7 reuses request 6's prompt.
     prompt_tokens = sum(len(p) for p in prompts)
@@ -680,19 +701,358 @@ def serve_phase(torch, cfg):
     decode_s = totals.get("decode", {}).get("total_s")
     steps = launches["qkv_rope"] // cfg.layers
     return {
-        "phase": "serve", "params": param_count(params),
         "requests": len(prompts), "tokens": sum(map(len, outputs)),
         "prompt_tokens": prompt_tokens, "prefill_tokens": computed,
-        "wall_s": wall, "prefill_s": prefill_s, "decode_s": decode_s,
+        "prefill_s": prefill_s, "decode_s": decode_s,
         "prefill_tok_s": computed / prefill_s if prefill_s else None,
         "decode_tok_s": ((sum(map(len, outputs)) - len(prompts)) / decode_s
                          if decode_s else None),
         "decode_steps": steps,
         "decode_step_ms": decode_s / steps * 1e3 if steps else None,
         "cycle_profile": engine.profiler.compact(), "launches": launches,
+    }
+
+
+def serve_phase(torch, cfg):
+    """The engine run at full width: every kernel must launch, greedy
+    streams equal ``generate``, the kernel path's logits agree with the
+    plain path in f32. Returns the phase line, the params and the
+    requests' streamed tokens."""
+    from kubeflow_tpu_torch.models.transformer import init_params, param_count
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.serving import make_engine
+
+    params = init_params(cfg, seed=0, device="cuda", dtype=cfg.dtype)
+    prompts, temps, seeds = serve_requests(torch, cfg)
+    engine = make_engine(cfg, params, max_batch=8, max_len=2048)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    events, wall = stream(torch, engine, prompts, temps, seeds)
+    launches = dict(_build.LAUNCHES)
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
+            _fail(f"kernel {name} was never launched on the serving path")
+    outputs, hits = check_streams(cfg, events, prompts, temps, seeds, params)
+
+    # Kernel path (bf16) vs the plain path in f32, on one request's
+    # prefill and first decode step.
+    params32 = {key: {n: {leaf: t.float() for leaf, t in sub.items()}
+                      for n, sub in val.items()}
+                if key.startswith("block_")
+                else {leaf: t.float() for leaf, t in val.items()}
+                for key, val in params.items()}
+    logit_err, logit_scale = logits_vs_plain(torch, cfg, params, params32,
+                                             prompts[3])
+    return {
+        "phase": "serve", "params": param_count(params), "wall_s": wall,
+        **engine_rates(engine, cfg, prompts, outputs, launches),
         "cache_hits": hits, "logit_max_abs_err": logit_err,
         "logit_max_abs": logit_scale, "logit_tol": TOL_LOGITS,
-    }, params
+    }, params, outputs
+
+
+def int8_phase(torch, cfg, params, requests):
+    """C1 and the int8 weights at full width: an int8 KV cache whose
+    layers' scale slices sit off 16-byte boundaries decodes on the card
+    as on the CPU; the engine serves ``quantize_decode_params`` of the
+    serve params through the int8 GEMV and the int8 fused QKV+RoPE, its
+    streams equal ``generate(quantize_weights=True)``, and its logits
+    agree with the f32 plain path on the dequantised weights. Returns
+    the phase line and the quantised params."""
+    from kubeflow_tpu_torch.models.decoding import (
+        Int8Linear,
+        generate,
+        quantize_decode_params,
+    )
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.serving import make_engine
+
+    prompts, temps, seeds = requests
+    # C1: prompt 8 + 8 new gives capacity 15 (no rounding below 256), so
+    # layer i's scale slice starts at i * 1 * 2 * 15 * 4 = 120 i bytes.
+    short = [prompts[0][:8]]
+    card_tokens = generate(cfg, params, short, 8,
+                           quantize_cache=True)[0].tolist()
+    on_cpu = {key: {n: t.cpu() if isinstance(t, torch.Tensor)
+                    else {leaf: x.cpu() for leaf, x in t.items()}
+                    for n, t in val.items()}
+              for key, val in params.items()}
+    cpu_tokens = generate(cfg, on_cpu, short, 8, quantize_cache=True,
+                          device="cpu")[0].tolist()
+    del on_cpu
+    if card_tokens != cpu_tokens:
+        _fail(f"int8-cache generate at capacity 15: card {card_tokens} vs "
+              f"CPU {cpu_tokens}")
+
+    qparams = quantize_decode_params(cfg, params)
+    engine = make_engine(cfg, qparams, max_batch=8, max_len=2048)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    events, wall = stream(torch, engine, prompts, temps, seeds)
+    launches = dict(_build.LAUNCHES)
+    for name in ("gemv", "qkv_rope"):
+        if launches[name] <= 0:
+            _fail(f"kernel {name} was never launched on int8 weights")
+    outputs, hits = check_streams(cfg, events, prompts, temps, seeds, params,
+                                  quantize_weights=True)
+
+    def dequantised(lin, axis):
+        if not isinstance(lin, Int8Linear):
+            _fail("quantize_decode_params left a float weight")
+        return lin.w8.float() * lin.scale.unsqueeze(axis)
+
+    params32 = {key: ({n: ({"kernel": dequantised(sub["kernel"], 0)}
+                           if "kernel" in sub
+                           else {k: t.float() for k, t in sub.items()})
+                       for n, sub in val.items()}
+                      if key.startswith("block_")
+                      else {"embedding": dequantised(val["embedding"], 1)}
+                      if key == "embed"
+                      else {k: t.float() for k, t in val.items()})
+                for key, val in qparams.items()}
+    logit_err, logit_scale = logits_vs_plain(torch, cfg, qparams, params32,
+                                             prompts[3])
+    return {
+        "phase": "int8", "c1_capacity": 15, "c1_tokens": card_tokens,
+        "wall_s": wall, **engine_rates(engine, cfg, prompts, outputs,
+                                       launches),
+        "cache_hits": hits, "logit_max_abs_err": logit_err,
+        "logit_max_abs": logit_scale, "logit_tol": TOL_LOGITS,
+    }, qparams
+
+
+def sse_request(url: str, body: dict) -> dict:
+    """One ``POST /v1/generate`` over a fresh connection, its SSE frames
+    parsed and each token's arrival timed on the client's clock."""
+    import http.client
+    import urllib.parse
+
+    parts = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port,
+                                      timeout=GATEWAY_TIMEOUT_S)
+    sent = time.perf_counter()
+    try:
+        conn.request("POST", "/v1/generate", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        response = conn.getresponse()
+        if response.status != 200:
+            _fail(f"/v1/generate answered {response.status}")
+        if response.getheader("Content-Type") != "text/event-stream":
+            _fail("/v1/generate did not answer with an event stream")
+        tokens, arrivals, done, event = [], [], None, None
+        for raw in response:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[len("event: "):]
+            elif line.startswith("data: "):
+                frame = json.loads(line[len("data: "):])
+                if event == "done":
+                    done = frame
+                    break
+                if frame.get("index") != len(tokens):
+                    _fail(f"SSE frame out of order: {frame}")
+                tokens.append(frame["token"])
+                arrivals.append(time.perf_counter())
+            elif line:
+                _fail(f"unexpected SSE line {line!r}")
+            else:
+                event = None
+        finished = time.perf_counter()
+    finally:
+        conn.close()
+    if done is None or done["tokens"] != tokens:
+        _fail(f"the stream ended without a done frame matching its tokens "
+              f"({done})")
+    return {"tokens": tokens, "done": done, "sent": sent,
+            "arrivals": arrivals, "finished": finished}
+
+
+def http_json(url: str, path: str, body=None) -> tuple[int, dict]:
+    """GET (or POST ``body``) and return (status, decoded JSON)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=GATEWAY_TIMEOUT_S) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def percentile(values, q: float) -> float:
+    """Nearest-rank percentile."""
+    ranked = sorted(values)
+    return ranked[min(len(ranked) - 1, max(0, math.ceil(q * len(ranked)) - 1))]
+
+
+def gateway_phase(torch, cfg, params, requests, outputs):
+    """The serve requests over HTTP: a fresh engine at full width behind
+    ``InferenceGateway``, the 8 requests sent at once from 8 client
+    threads; every SSE frame parses and every stream equals the serve
+    phase's; then ``stream: false``, a 400, the health routes and
+    ``/metrics`` read back with the port's own parser; then the pod
+    entrypoint as its own process."""
+    import urllib.request
+
+    from kubeflow_tpu_torch.obs.exposition import parse_text, sample_value
+    from kubeflow_tpu_torch.serving import InferenceGateway, make_engine
+
+    prompts, temps, seeds = requests
+    engine = make_engine(cfg, params, max_batch=8, max_len=2048)
+    gateway = InferenceGateway(engine, port=0).start()
+    url = f"http://127.0.0.1:{gateway.port}"
+    try:
+        results = [None] * len(prompts)
+        errors = []
+
+        def client(i):
+            body = {"prompt": prompts[i], "max_new_tokens": NEW_TOKENS}
+            if temps[i] > 0:
+                body.update(temperature=temps[i], seed=seeds[i])
+            try:
+                results[i] = sse_request(url, body)
+            except Exception as exc:  # analysis: allow[py-broad-except]
+                # Kept and re-raised on the main thread below.
+                errors.append((i, exc))
+
+        torch.cuda.synchronize()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        started = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(GATEWAY_TIMEOUT_S)
+            if t.is_alive():
+                _fail("an HTTP client did not finish")
+        wall = time.perf_counter() - started
+        if errors:
+            raise errors[0][1]
+        for i, res in enumerate(results):
+            if res["tokens"] != outputs[i]:
+                _fail(f"HTTP stream {i} (temperature {temps[i]}) differs "
+                      "from the serve phase's stream")
+            if res["done"]["reason"] != "length":
+                _fail(f"HTTP stream {i} ended with {res['done']['reason']}")
+
+        status, payload = http_json(url, "/v1/generate", {
+            "prompt": prompts[3], "max_new_tokens": NEW_TOKENS,
+            "stream": False})
+        if status != 200 or payload["tokens"] != outputs[3]:
+            _fail(f"stream: false answered {status} with other tokens")
+        status, payload = http_json(url, "/v1/generate", {"prompt": []})
+        if status != 400 or "prompt" not in payload.get("error", ""):
+            _fail(f"an empty prompt answered {status} {payload}")
+        for path, want in (("/healthz", {"status": "ok"}),
+                           ("/readyz", {"ready": True})):
+            if http_json(url, path) != (200, want):
+                _fail(f"{path} did not answer 200 {want}")
+        with urllib.request.urlopen(url + "/metrics",
+                                    timeout=GATEWAY_TIMEOUT_S) as r:
+            families = parse_text(r.read().decode())
+        served = len(prompts) + 1
+        server = {}
+        for name in ("inference_ttft_seconds", "inference_itl_seconds"):
+            server[name] = {
+                "count": sample_value(families, f"{name}_count"),
+                "sum": sample_value(families, f"{name}_sum")}
+        server["inference_request_duration_seconds"] = {
+            outcome: {"count": sample_value(
+                families, "inference_request_duration_seconds_count",
+                {"outcome": outcome}), "sum": sample_value(
+                families, "inference_request_duration_seconds_sum",
+                {"outcome": outcome})}
+            for outcome in ("ok", "bad_request")}
+        if server["inference_ttft_seconds"]["count"] != served:
+            _fail(f"inference_ttft_seconds counted "
+                  f"{server['inference_ttft_seconds']['count']} of "
+                  f"{served} requests")
+    finally:
+        gateway.stop()
+
+    ttft = [r["arrivals"][0] - r["sent"] for r in results]
+    gaps = [b - a for r in results
+            for a, b in zip(r["arrivals"], r["arrivals"][1:])]
+    return {
+        "phase": "gateway", "requests": len(prompts), "wall_s": wall,
+        "ttft_s": {"min": min(ttft), "median": statistics.median(ttft),
+                   "max": max(ttft), "each": ttft},
+        "itl_s": {"median": statistics.median(gaps),
+                  "p99": percentile(gaps, 0.99), "max": max(gaps),
+                  "count": len(gaps)},
+        "request_wall_s": [r["finished"] - r["sent"] for r in results],
+        "server": server,
+        "pod": pod_check(cfg, prompts[3], outputs[3]),
+    }
+
+
+def pod_check(cfg, prompt, want) -> dict:
+    """``python -m kubeflow_tpu_torch.serving`` as its own process at the
+    flagship's dims on a free port: ready within POD_READY_TIMEOUT_S, one
+    greedy request equal to ``want`` (the serve phase's stream of the
+    same prompt on the same seeded init), exit 0 on SIGTERM."""
+    import os
+    import signal
+    import socket
+    from pathlib import Path
+
+    from kubeflow_tpu_torch.ops import _build
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dims = {"vocab": cfg.vocab, "layers": cfg.layers, "dim": cfg.dim,
+            "heads": cfg.heads, "kv_heads": cfg.kv_heads,
+            "dtype": str(cfg.dtype).removeprefix("torch.")}
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KFT_SERVING_")}
+    env.update(KFT_SERVING_CONFIG=json.dumps(dims),
+               KFT_SERVING_PORT=str(port))
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    log_path = _build.BUILD_DIR / "pod.log"
+    url = f"http://127.0.0.1:{port}"
+    started = time.perf_counter()
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kubeflow_tpu_torch.serving"],
+            cwd=Path(__file__).resolve().parent, env=env, stdout=log,
+            stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    _fail(f"the pod exited with {proc.returncode} before "
+                          f"it was ready: {log_path.read_text()[-2000:]}")
+                try:
+                    if http_json(url, "/readyz") == (200, {"ready": True}):
+                        break
+                except OSError:
+                    pass
+                if time.perf_counter() - started > POD_READY_TIMEOUT_S:
+                    _fail(f"the pod was not ready within "
+                          f"{POD_READY_TIMEOUT_S} s")
+                time.sleep(0.5)
+            ready_s = time.perf_counter() - started
+            t0 = time.perf_counter()
+            reply = sse_request(url, {"prompt": prompt,
+                                      "max_new_tokens": len(want)})
+            request_s = time.perf_counter() - t0
+            if reply["tokens"] != want:
+                _fail("the pod's greedy stream differs from generate()")
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=120)
+            if code != 0:
+                _fail(f"the pod exited with {code} on SIGTERM: "
+                      f"{log_path.read_text()[-2000:]}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    return {"ready_s": ready_s, "request_s": request_s,
+            "ttft_s": reply["arrivals"][0] - reply["sent"],
+            "exit_code": code}
 
 
 # ---------------------------------------------------------------- trace
@@ -997,9 +1357,17 @@ def main() -> int:
     print(json.dumps({"phase": "kernels", "build_s": build_s,
                       "cases": cases}), flush=True)
     cfg = flagship(torch)
-    serve, params = serve_phase(torch, cfg)
+    serve, params, outputs = serve_phase(torch, cfg)
     print(json.dumps(serve), flush=True)
+    requests = serve_requests(torch, cfg)
+    int8, qparams = int8_phase(torch, cfg, params, requests)
+    print(json.dumps(int8), flush=True)
+    print(json.dumps(gateway_phase(torch, cfg, params, requests, outputs)),
+          flush=True)
     print(json.dumps(trace_phase(torch, cfg, params)), flush=True)
+    print(json.dumps({**trace_phase(torch, cfg, qparams),
+                      "phase": "trace_int8"}), flush=True)
+    del qparams
     del params
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1012,7 +1380,9 @@ def main() -> int:
     # Launches from the phase that runs each kernel: the serve run for
     # the serving kernels, the train run for the backward kernels. The
     # flash forward runs on both: ``launches`` is the serve run's,
-    # ``train_launches`` the train run's.
+    # ``train_launches`` the train run's; ``int8_launches`` are the int8
+    # phase's engine run's (int8 weights: every gemv and qkv_rope launch
+    # there takes an int8 weight).
     launches = {**serve["launches"], "flash_dq": train["launches"]["flash_dq"],
                 "flash_dkv": train["launches"]["flash_dkv"]}
     meta = {
@@ -1040,6 +1410,7 @@ def main() -> int:
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
             "case": case["case"],
+            "int8_launches": int8["launches"][name],
             "train_launches": train["launches"][name]})
     print(json.dumps({"kernels": summary}), flush=True)
     smi = subprocess.run(

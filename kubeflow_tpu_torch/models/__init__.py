@@ -10,9 +10,11 @@ from kubeflow_tpu_torch.models.convert import (
     train_state_from_jax,
 )
 from kubeflow_tpu_torch.models.decoding import (
+    Int8Linear,
     KVCache,
     forward_with_cache,
     generate,
+    quantize_decode_params,
 )
 from kubeflow_tpu_torch.models.optim import AdamW, AdamWState
 from kubeflow_tpu_torch.models.serving import BatchState, ContinuousBatcher
@@ -41,9 +43,11 @@ __all__ = [
     "AdamWState",
     "params_from_jax",
     "train_state_from_jax",
+    "Int8Linear",
     "KVCache",
     "forward_with_cache",
     "generate",
+    "quantize_decode_params",
     "ContinuousBatcher",
     "BatchState",
 ]

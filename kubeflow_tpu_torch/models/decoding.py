@@ -27,9 +27,15 @@ Where the port differs from the reference, and why:
   ``torch.no_grad``, so a trained state's parameters (which require
   grad) are served as they are, with no copy.
 
-Weight-only int8 (``Int8Linear``/``quantize_decode_params``), the
-stacked-params path, MoE decode and the rolling-cache mid-sequence
-chunk belong to later slices and raise here.
+- Weight-only int8 (W8A16): :func:`quantize_decode_params` turns every
+  projection and the tied embedding into an :class:`Int8Linear`; ``_mm``
+  and the fused QKV+RoPE step take it (on the card: the int8 GEMV and
+  the int8 qkv_rope kernel), and ``generate(quantize_weights=True)``
+  quantises on the way in.
+
+The stacked-params path (``StackedDecodeParams``), MoE decode and the
+rolling-cache mid-sequence chunk belong to later slices (ROADMAP A3,
+A12) and raise here.
 """
 
 from __future__ import annotations
@@ -103,6 +109,28 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda and t.dtype == torch.bfloat16
 
 
+@dataclasses.dataclass
+class Int8Linear:
+    """Weight-only int8 projection: ``w8`` (K, N) int8, or (N, K) read
+    with ``transpose_w`` (the tied embedding), and ``scale`` (N,) f32,
+    absmax / 127 per output channel over the contraction axis. Built by
+    :func:`quantize_decode_params`; ``_mm`` takes it wherever the decode
+    path multiplies a weight."""
+
+    w8: torch.Tensor
+    scale: torch.Tensor
+
+
+def _quantize_linear(w, axis: int) -> Int8Linear:
+    """Per-output-channel symmetric int8: scale_n = max(absmax_n, 1e-12)
+    / 127 over the contraction ``axis``, then round and clip to ±127."""
+    wf = w.detach().float()
+    scale = wf.abs().amax(dim=axis).clamp_min(1e-12) / 127.0
+    w8 = torch.clamp(torch.round(wf / scale.unsqueeze(axis)), -127,
+                     127).to(torch.int8)
+    return Int8Linear(w8=w8.contiguous(), scale=scale.contiguous())
+
+
 def _dense_mm(h, w, transpose_w: bool):
     wf = w.float()
     return h.float() @ (wf.t() if transpose_w else wf)
@@ -110,23 +138,47 @@ def _dense_mm(h, w, transpose_w: bool):
 
 def _mm(h, kernel, dtype, transpose_w: bool = False, residual=None):
     """Decode-step projection ``h (B, T, D) @ kernel`` routed per
-    ``DECODE_MM``. Returns f32, or ``residual + y.to(dtype)`` in the
+    ``DECODE_MM``. ``kernel`` is a tensor (cast to ``dtype``) or an
+    :class:`Int8Linear`. Returns f32, or ``residual + y.to(dtype)`` in the
     residual's dtype when ``residual`` (B, T, N) is given (the GEMV's
     fused epilogue on the kernel path). ``transpose_w`` contracts the
-    kernel's LAST axis (the (vocab, D) tied embedding, no copy)."""
-    w = kernel.to(dtype)
+    kernel's LAST axis (the (vocab, D) tied embedding, no copy).
+
+    int8 keeps the reference's op order: with a residual the GEMV takes
+    the scale (it must precede the add); without one, ``gemv(h, w8) *
+    scale``; the dense path upcasts w8 to ``dtype``, accumulates in f32,
+    then scales."""
+    quantized = isinstance(kernel, Int8Linear)
+    w = kernel.w8 if quantized else kernel.to(dtype)
     b, t, d = h.shape
     n = w.shape[0] if transpose_w else w.shape[1]
     use = gemv_fits(b * t, d, n) and (
         DECODE_MM == "gemv" or (DECODE_MM == "auto" and _on_card(h)))
     if use:
-        res = residual.reshape(b * t, n) if residual is not None else None
-        return gemv(h.reshape(b * t, d), w, residual=res,
-                    transpose_w=transpose_w).reshape(b, t, n)
-    y = _dense_mm(h, w, transpose_w)
+        if residual is not None:
+            return gemv(h.reshape(b * t, d), w,
+                        scale=kernel.scale if quantized else None,
+                        residual=residual.reshape(b * t, n),
+                        transpose_w=transpose_w).reshape(b, t, n)
+        y = gemv(h.reshape(b * t, d), w,
+                 transpose_w=transpose_w).reshape(b, t, n)
+    else:
+        y = _dense_mm(h, w.to(dtype) if quantized else w, transpose_w)
+    if quantized:
+        y = y * kernel.scale
     if residual is not None:
         return residual + y.to(dtype)
     return y
+
+
+def embed_tokens(cfg: LMConfig, emb, tokens):
+    """The embedding rows of ``tokens`` in the compute dtype; an int8
+    embedding gathers its rows and their per-row scales (the (vocab,)
+    scale is per embedding row) and multiplies in the compute dtype."""
+    if isinstance(emb, Int8Linear):
+        return (emb.w8[tokens].to(cfg.dtype)
+                * emb.scale[tokens][..., None].to(cfg.dtype))
+    return emb[tokens].to(cfg.dtype)
 
 
 def _fused_step_wanted(h: torch.Tensor) -> bool:
@@ -166,9 +218,14 @@ FUSED_QKV_KEY = "qkv_fused"
 
 def _concat_qkv(cfg: LMConfig, blk):
     """(w, scale): the q/k/v kernels concatenated along the output axis
-    in the fused kernel's layout (no int8 weights in this slice)."""
-    w = torch.cat([blk["q_proj"]["kernel"], blk["k_proj"]["kernel"],
-                   blk["v_proj"]["kernel"]], dim=1).to(cfg.dtype)
+    in the fused kernel's layout (int8: the payloads and the per-channel
+    scales)."""
+    kq, kk, kv = (blk[name]["kernel"] for name in ("q_proj", "k_proj",
+                                                   "v_proj"))
+    if isinstance(kq, Int8Linear):
+        return (torch.cat([kq.w8, kk.w8, kv.w8], dim=1).contiguous(),
+                torch.cat([kq.scale, kk.scale, kv.scale]).contiguous())
+    w = torch.cat([kq, kk, kv], dim=1).to(cfg.dtype)
     return w.contiguous(), None
 
 
@@ -181,8 +238,7 @@ def fuse_qkv_params(cfg: LMConfig, params: dict[str, Any],
     Pass-through when the fused step can never run on these params:
     selector off, a dtype or device the kernel does not serve, ``rows``
     past the thin-row bound, or shapes the kernel refuses."""
-    emb = params["embed"]["embedding"]
-    probe = torch.empty(0, dtype=cfg.dtype, device=emb.device)
+    probe = torch.empty(0, dtype=cfg.dtype, device=_params_device(params))
     if not _fused_step_wanted(probe):
         return params
     if rows is not None and rows > MAX_ROWS:
@@ -404,8 +460,8 @@ def _attend_and_cache(cfg: LMConfig, q, k, v, ck, cv, pos: int, empty: bool,
     if rolling:
         raise NotImplementedError(
             "multi-token chunks on a rolling cache belong to a later slice "
-            "of the port (the engine serves rolling slots with monolithic "
-            "prefill)")
+            "of the port (ROADMAP A3; the engine serves rolling slots with "
+            "monolithic prefill)")
     write(pos)
     return _cached_attention(cfg, q, ck, cv, pos, t, ks_buf, vs_buf)
 
@@ -442,7 +498,35 @@ def _block_step(cfg: LMConfig, blk, x, ck, cv, pos: int, empty: bool,
 
 
 def _params_device(params) -> torch.device:
-    return params["embed"]["embedding"].device
+    emb = params["embed"]["embedding"]
+    return (emb.w8 if isinstance(emb, Int8Linear) else emb).device
+
+
+@torch.no_grad()
+def quantize_decode_params(cfg: LMConfig,
+                           params: dict[str, Any]) -> dict[str, Any]:
+    """Weight-only int8 view of the training params for decoding (W8A16:
+    int8 weights, bf16 activations, f32 accumulation), same nesting, so
+    it goes wherever ``forward_with_cache``/``generate``/the engines take
+    ``params``. q/k/v/proj/up/down quantise along axis 0 (their input
+    axis), the tied embedding along axis 1; norms stay f32. A
+    ``qkv_fused`` entry of the float weights is dropped: quantise first,
+    fuse after."""
+    quant = {"q_proj", "k_proj", "v_proj", "proj", "up", "down"}
+    out: dict[str, Any] = {}
+    for key, sub in params.items():
+        if key.startswith("block_"):
+            out[key] = {name: ({"kernel": _quantize_linear(leaf["kernel"],
+                                                           axis=0)}
+                               if name in quant else leaf)
+                        for name, leaf in sub.items()
+                        if name != FUSED_QKV_KEY}
+        elif key == "embed":
+            out[key] = {"embedding": _quantize_linear(sub["embedding"],
+                                                      axis=1)}
+        else:
+            out[key] = sub
+    return out
 
 
 @torch.no_grad()
@@ -466,7 +550,7 @@ def forward_with_cache(cfg: LMConfig, params: dict[str, Any], tokens,
         raise ValueError(f"cache overflow: length {pos} + {tokens.shape[1]} "
                          f"new tokens > max_len {capacity}")
     emb = params["embed"]["embedding"]
-    x = emb[tokens].to(cfg.dtype)
+    x = embed_tokens(cfg, emb, tokens)
     quantized = cache.quantized
     for i in range(cfg.layers):
         x = _block_step(
@@ -501,11 +585,15 @@ def gumbel_noise(gen: torch.Generator, shape, device) -> torch.Tensor:
 @torch.no_grad()
 def generate(cfg: LMConfig, params: dict[str, Any], prompt,
              max_new_tokens: int, temperature: float = 0.0, rng=None,
-             quantize_cache: bool = False, device=None) -> torch.Tensor:
+             quantize_cache: bool = False, quantize_weights: bool = False,
+             device=None) -> torch.Tensor:
     """Greedy (temperature 0) or sampled generation. ``prompt`` (B, P)
     int; returns (B, max_new_tokens) int32 on the device. ``rng`` (an
     int seed or a ``torch.Generator``) is required when sampling: each
-    token draws Gumbel noise from it, first token first."""
+    token draws Gumbel noise from it, first token first.
+    ``quantize_weights`` decodes through :func:`quantize_decode_params`
+    of ``params`` (the raw training params); quantised params can as well
+    be passed directly."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
     if cfg.moe_experts:
@@ -514,6 +602,11 @@ def generate(cfg: LMConfig, params: dict[str, Any], prompt,
         raise ValueError("temperature > 0 samples; pass rng (an int seed or "
                          "a torch.Generator) - a fixed default would return "
                          "identical samples on every call")
+    if quantize_weights:
+        if isinstance(params["embed"]["embedding"], Int8Linear):
+            raise ValueError("quantize_weights takes the raw training "
+                             "params; these are already quantised")
+        params = quantize_decode_params(cfg, params)
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=dev).long()
     b, p = prompt.shape

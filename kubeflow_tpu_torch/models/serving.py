@@ -44,6 +44,7 @@ from kubeflow_tpu_torch.models.decoding import (
     _params_device,
     _quantize_rows,
     attention_kernel_wanted,
+    embed_tokens,
     forward_with_cache,
     fuse_qkv_params,
     gumbel_noise,
@@ -188,7 +189,7 @@ def decode_step(cfg: LMConfig, params: dict[str, Any], state: BatchState,
                                   "models; MoE decode is a later slice")
     b = state.last.shape[0]
     emb = params["embed"]["embedding"]
-    x = emb[state.last.long()[:, None]].to(cfg.dtype)  # (B, 1, D)
+    x = embed_tokens(cfg, emb, state.last.long()[:, None])  # (B, 1, D)
     hq, hkv, hd = cfg.heads, cfg.num_kv_heads, cfg.head_dim
     capacity = state.k.shape[3]
     # Ring slots wrap; linear writes clamp at the edge like the

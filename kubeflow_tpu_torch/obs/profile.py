@@ -6,38 +6,25 @@ a per-cycle activation scope) and the device-memory watermark, which
 here reads ``torch.cuda.memory_stats`` and is None on the CPU.
 
 Environment: ``KFT_PROFILE_WINDOW`` (digest window, default 512) and
-``KFT_PROFILE_MEMORY`` ("0" disables the watermark).
+``KFT_PROFILE_MEMORY`` (anything but "1"/"true"/"yes" disables the
+watermark), parsed as the reference parses them (``obs/envknob.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-import os
 import threading
 import time
 from collections import deque
 from typing import Callable
 
+from kubeflow_tpu_torch.obs.envknob import env_bool, env_number
+
 _ACTIVE: contextvars.ContextVar["PhaseProfiler | None"] = \
     contextvars.ContextVar("kubeflow_tpu_torch_active_profiler", default=None)
 _SCOPE: contextvars.ContextVar[dict | None] = \
     contextvars.ContextVar("kubeflow_tpu_torch_profile_scope", default=None)
-
-
-def _env_int(name: str, default: int) -> int:
-    raw = os.environ.get(name)
-    try:
-        return int(raw) if raw else default
-    except ValueError:
-        return default
-
-
-def _env_bool(name: str, default: bool) -> bool:
-    raw = os.environ.get(name)
-    if raw is None or raw == "":
-        return default
-    return raw.strip().lower() not in ("0", "false", "no", "off")
 
 
 class PhaseDigest:
@@ -95,9 +82,9 @@ class PhaseProfiler:
                  clock: Callable[[], float] = time.perf_counter,
                  memory: bool | None = None):
         self.window = (window if window is not None
-                       else _env_int("KFT_PROFILE_WINDOW", 512))
+                       else env_number("KFT_PROFILE_WINDOW", 512, cast=int))
         self._clock = clock
-        self.memory = (_env_bool("KFT_PROFILE_MEMORY", True)
+        self.memory = (env_bool("KFT_PROFILE_MEMORY", True)
                        if memory is None else bool(memory))
         self._lock = threading.Lock()
         self._digests: dict[str, PhaseDigest] = {}

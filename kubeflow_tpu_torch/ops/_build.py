@@ -168,12 +168,17 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda(kernel: str, *tensors) -> None:
+def require_cuda(kernel: str, *tensors, word_reads=()) -> None:
     """A CUDA call site must hand the kernel tensors on one card,
-    contiguous and 16-byte aligned; anything else raises (there is no
-    silent fallback on the card)."""
+    contiguous and aligned; anything else raises (there is no silent
+    fallback on the card). ``tensors`` take 16-byte copies and need
+    16-byte alignment. ``word_reads`` are tensors the kernel reads one
+    4-byte word at a time (the f32 scales), which need only 4: a layer's
+    slice of a stacked scale buffer starts wherever the layers before it
+    end."""
     device = tensors[0].device
-    for t in tensors:
+    for t, align in ([(t, 16) for t in tensors]
+                     + [(t, 4) for t in word_reads]):
         if t is None:
             continue
         if not t.is_cuda:
@@ -183,8 +188,9 @@ def require_cuda(kernel: str, *tensors) -> None:
             raise ValueError(f"{kernel}: tensors on {t.device} and {device}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: inputs must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{kernel}: inputs must be 16-byte aligned")
+        if t.data_ptr() % align:
+            raise ValueError(f"{kernel}: inputs must be {align}-byte "
+                             "aligned")
 
 
 def ptr(t) -> int | None:

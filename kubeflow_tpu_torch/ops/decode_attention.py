@@ -101,7 +101,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None,
         k_scale = k_scale.to(torch.float32).contiguous()
         v_scale = v_scale.to(torch.float32).contiguous()
     _build.require_cuda("decode_attention", q, k_cache, v_cache, pos_vec,
-                        k_scale, v_scale)
+                        word_reads=(k_scale, v_scale))
     out = torch.empty_like(q)
     lib = _build.library()
     status = lib.kft_decode_attention(

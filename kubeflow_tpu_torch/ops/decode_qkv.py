@@ -88,7 +88,7 @@ def qkv_rope(x, w, pos, scale=None, *, head_dim: int, rope_heads: int,
     pos = pos.to(torch.int32).contiguous()
     if scale is not None:
         scale = scale.to(torch.float32).contiguous()
-    _build.require_cuda("qkv_rope", x, w, pos, scale)
+    _build.require_cuda("qkv_rope", x, w, pos, word_reads=(scale,))
     out = torch.empty((rows, n), dtype=x.dtype, device=x.device)
     lib = _build.library()
     status = lib.kft_qkv_rope(

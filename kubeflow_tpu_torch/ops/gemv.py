@@ -85,7 +85,7 @@ def gemv(x, w, scale=None, residual=None, *,
         raise TypeError("gemv kernel takes a bf16 residual")
     if scale is not None:
         scale = scale.to(torch.float32).contiguous()
-    _build.require_cuda("gemv", x, w, scale, residual)
+    _build.require_cuda("gemv", x, w, residual, word_reads=(scale,))
     out_dtype = torch.float32 if residual is None else residual.dtype
     out = torch.empty((rows, n), dtype=out_dtype, device=x.device)
     lib = _build.library()

@@ -1,8 +1,8 @@
 """Inference serving on the card: the streaming engine over the
 continuous batcher (bounded inbox, capped prefill-per-cycle
-interleaving, prefix-cache reuse, chunked prefill, hot swap) and its
-scheduler thread. The HTTP/SSE gateway and the pod entrypoint come in
-the next slice of the port."""
+interleaving, prefix-cache reuse, chunked prefill, hot swap), its
+scheduler thread, the HTTP/SSE gateway (``gateway.py``) and the pod
+entrypoint ``python -m kubeflow_tpu_torch.serving`` (``__main__.py``)."""
 
 from kubeflow_tpu_torch.serving.engine import (
     PrefixCache,
@@ -11,8 +11,10 @@ from kubeflow_tpu_torch.serving.engine import (
     StreamingBatcher,
     make_engine,
 )
+from kubeflow_tpu_torch.serving.gateway import InferenceGateway
 
 __all__ = [
+    "InferenceGateway",
     "PrefixCache",
     "QueueFull",
     "Scheduler",

@@ -1,0 +1,125 @@
+"""Inference-gateway pod entrypoint: ``python -m kubeflow_tpu_torch.serving``.
+
+The counterpart of ``kubeflow_tpu/serving/__main__.py``, with the same
+env contract (the ``inference-env`` PodDefault injects the KFT_SERVING_*
+variables; ``KFT_SERVING_CONFIG`` comes from the image or the CR
+template):
+
+- ``KFT_SERVING_CONFIG`` — JSON object of LMConfig overrides
+  (vocab/layers/dim/heads/kv_heads/dtype/...; ``dtype`` by torch name,
+  e.g. ``"bfloat16"``, the kernels' dtype); defaults to a small dev
+  model. The weights are a random init (``init_params``, seed 0, in the
+  config's dtype): not the reference's ``jax.random.key(0)`` numbers.
+- ``KFT_SERVING_MODEL_DIR`` — checkpoint restore and hot-swap reload
+  belong to a later slice of the port (ROADMAP A8): when it is set,
+  ``main`` raises instead of serving random weights in the checkpoint's
+  place.
+- ``KFT_SERVING_MAX_BATCH`` / ``KFT_SERVING_MAX_LEN`` — decode slots /
+  slot capacity. ``KFT_SERVING_EOS`` — optional eos token id.
+  ``KFT_SERVING_PORT`` — HTTP port (default 8800).
+- ``KFT_SERVING_PREFILL_CHUNK`` — chunked-prefill admission threshold
+  (unset = monolithic prefill).
+- ``KFT_SERVING_SPEC_NGRAM`` — "1"/"true" asks for self-speculative
+  n-gram decoding, which ``make_engine`` refuses until it is ported
+  (ROADMAP A6).
+- ``KFT_AUTOPILOT`` — "0" disables the SLO autopilot (default on: the
+  gateway admission actuator tightens max_pending / prefill_per_cycle
+  while TTFT/ITL burn is critical and restores them on resolve).
+  ``KFT_AUTOPILOT_SHED_FACTOR`` (default 4) sets how hard admission
+  tightens; ``KFT_AUTOPILOT_MIN_INTERVAL_S`` (default 60) rate-limits
+  actuations.
+
+The pod runs on the card; ``main(device="cpu")`` is for tests. SIGTERM
+or SIGINT stops the gateway and the scheduler, and ``main`` returns.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import signal
+import threading
+
+log = logging.getLogger(__name__)
+
+
+def build_model(env: dict, device=None):
+    """(cfg, params) from the env: config overrides + a seeded random
+    init on the card (or ``device``)."""
+    import torch
+
+    from kubeflow_tpu_torch._device import resolve_device
+    from kubeflow_tpu_torch.models.transformer import LMConfig, init_params
+
+    overrides = json.loads(env.get("KFT_SERVING_CONFIG") or "{}")
+    if "dtype" in overrides:
+        dtype = getattr(torch, str(overrides["dtype"]), None)
+        if not isinstance(dtype, torch.dtype):
+            raise ValueError(f"KFT_SERVING_CONFIG dtype "
+                             f"{overrides['dtype']!r} is not a torch dtype")
+        overrides["dtype"] = dtype
+    cfg = LMConfig(**overrides)
+    params = init_params(cfg, seed=0, device=resolve_device(device),
+                         dtype=cfg.dtype)
+    return cfg, params
+
+
+def main(argv=None, device=None) -> None:
+    from kubeflow_tpu_torch.autopilot import (
+        Autopilot,
+        GatewayAdmissionActuator,
+        autopilot_enabled,
+    )
+    from kubeflow_tpu_torch.obs import configure_structured_logging
+    from kubeflow_tpu_torch.obs.envknob import env_number
+    from kubeflow_tpu_torch.serving.engine import make_engine
+    from kubeflow_tpu_torch.serving.gateway import InferenceGateway
+
+    configure_structured_logging()
+    env = dict(os.environ)
+    model_dir = env.get("KFT_SERVING_MODEL_DIR", "")
+    if model_dir:
+        raise NotImplementedError(
+            f"KFT_SERVING_MODEL_DIR={model_dir!r}: checkpoint restore and "
+            "hot-swap reload belong to a later slice of the port (ROADMAP "
+            "A8); refusing to serve random weights in the checkpoint's "
+            "place")
+    cfg, params = build_model(env, device=device)
+    eos = env.get("KFT_SERVING_EOS")
+    chunk = env.get("KFT_SERVING_PREFILL_CHUNK")
+    spec = env.get("KFT_SERVING_SPEC_NGRAM", "").lower() in (
+        "1", "true", "yes")
+    engine = make_engine(
+        cfg, params,
+        max_batch=int(env.get("KFT_SERVING_MAX_BATCH", "8")),
+        max_len=int(env.get("KFT_SERVING_MAX_LEN", "2048")),
+        eos_token=int(eos) if eos else None,
+        prefill_chunk_tokens=int(chunk) if chunk else None,
+        spec_ngram=spec,
+        device=device,
+    )
+    autopilot = None
+    if autopilot_enabled():
+        autopilot = Autopilot(recorder=engine.recorder)
+        autopilot.register(GatewayAdmissionActuator(
+            engine,
+            shed_factor=env_number("KFT_AUTOPILOT_SHED_FACTOR", 4,
+                                   cast=int, minimum=2),
+        ))
+    gateway = InferenceGateway(
+        engine,
+        port=int(env.get("KFT_SERVING_PORT", "8800")),
+        autopilot=autopilot,
+    ).start()
+    log.info("inference gateway serving on :%d (batched=%s, device=%s)",
+             gateway.port, engine.batched, engine.device)
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+    stop.wait()
+    gateway.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -289,6 +289,8 @@ class StreamingBatcher(_EngineBase, ContinuousBatcher):
     """The continuous batcher as a streaming engine (module docstring has
     the design). Runs on the card unless ``device="cpu"``."""
 
+    batched = True  # /v1/status: slots decode in lockstep
+
     def __init__(self, cfg: LMConfig, params, max_batch: int, max_len: int,
                  eos_token: int | None = None, step_chunk: int = 8,
                  quantize_cache: bool = False, prefill_per_cycle: int = 2,

@@ -607,3 +607,56 @@ def test_engine_on_the_card_matches_generate(card):
     for i, p in enumerate(prompts):
         ref = generate(cfg, params, [p], 12)[0].tolist()
         assert outs[i]["tokens"] == ref
+
+
+# Card vs CPU twins on the same bf16 model: both round to bf16 at the
+# same points and sum in other orders, so logits of |x| ~ 3 (bf16 ulp
+# 2^-6) agree to a few ulps.
+TOL_LOGITS_TWINS = 0.1
+
+
+@pytest.mark.parametrize("kv_heads,prompt_len,new", [(2, 8, 8),
+                                                     (1, 248, 8)],
+                         ids=["cap15_hkv2", "cap255_hkv1"])
+def test_int8_cache_generate_at_unaligned_layer_offsets(card, monkeypatch,
+                                                        kv_heads, prompt_len,
+                                                        new):
+    """An int8 KV cache whose per-layer scale slices start off a 16-byte
+    boundary (capacity 15 at B=1, Hkv=2: layer 1 at 120 bytes; capacity
+    255 at Hkv=1: layer 1 at 1020) decodes through flash-decode on the
+    card and gives the tokens and first decode logits of the same call
+    on CPU copies of the params, where every wrapper runs its twin."""
+    from kubeflow_tpu_torch.models import decoding as tdec
+    from kubeflow_tpu_torch.models.transformer import LMConfig, init_params
+    from kubeflow_tpu_torch.ops import _build
+
+    monkeypatch.setattr(tdec, "DECODE_MM", "gemv")
+    monkeypatch.setattr(tdec, "DECODE_FUSED", "on")
+    monkeypatch.setattr(tdec, "DECODE_IMPL", "kernel")
+    cfg = LMConfig(vocab=512, layers=2, dim=256, heads=4, kv_heads=kv_heads,
+                   dtype=torch.bfloat16)
+    params = init_params(cfg, seed=1, device="cuda", dtype=torch.bfloat16)
+    cpu = {k: {n: {leaf: t.cpu() for leaf, t in v.items()}
+               if isinstance(v, dict) else v.cpu() for n, v in sub.items()}
+           for k, sub in params.items()}
+    prompt = [[(7 * i + 3) % cfg.vocab for i in range(prompt_len)]]
+    cap = prompt_len + new - 1
+    assert cap * kv_heads * 4 % 16, "the case must misalign layer 1"
+
+    def first_decode_logits(p, device):
+        cache = tdec.KVCache.init(cfg, 1, cap, quantized=True, device=device)
+        logits, cache = tdec.forward_with_cache(cfg, p, prompt, cache,
+                                                last_logits_only=True,
+                                                device=device)
+        nxt = logits[:, -1].argmax(-1, keepdim=True)
+        return tdec.forward_with_cache(cfg, p, nxt, cache, device=device)[0]
+
+    _build.reset_launches()
+    out = tdec.generate(cfg, params, prompt, new, quantize_cache=True)
+    assert _build.LAUNCHES["decode_attention"] == cfg.layers * (new - 1)
+    ref = tdec.generate(cfg, cpu, prompt, new, quantize_cache=True,
+                        device="cpu")
+    assert out.cpu().tolist() == ref.tolist()
+    card_logits = first_decode_logits(params, "cuda").cpu()
+    cpu_logits = first_decode_logits(cpu, "cpu")
+    assert float((card_logits - cpu_logits).abs().max()) <= TOL_LOGITS_TWINS

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: it imports no JAX and nothing of the
-JAX package, not even its framework-free modules.
+JAX package, not even its framework-free modules, and no
+``prometheus_client`` (the port renders its own exposition, so a CUDA
+serving image need not carry it).
 
 Two checks: a fresh interpreter imports the port and ``chip_smoke``
 (without running it) and must end with no ``jax``/``flax``/``optax`` or
@@ -19,7 +21,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "kubeflow_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "kubeflow_tpu",
+             "prometheus_client")
 
 
 def _forbidden(module: str) -> bool:
@@ -38,6 +41,17 @@ def test_importing_the_port_loads_no_jax():
         "import kubeflow_tpu_torch, kubeflow_tpu_torch.serving\n"
         "import kubeflow_tpu_torch.models, kubeflow_tpu_torch.ops\n"
         "import kubeflow_tpu_torch.obs, chip_smoke\n"
+        "import kubeflow_tpu_torch.serving.gateway\n"
+        "import kubeflow_tpu_torch.serving.__main__\n"
+        "import kubeflow_tpu_torch.autopilot\n"
+        "import kubeflow_tpu_torch.autopilot.core\n"
+        "import kubeflow_tpu_torch.autopilot.serving\n"
+        "import kubeflow_tpu_torch.obs.alerts, kubeflow_tpu_torch.obs.slo\n"
+        "import kubeflow_tpu_torch.obs.trace\n"
+        "import kubeflow_tpu_torch.obs.logging\n"
+        "import kubeflow_tpu_torch.obs.envknob\n"
+        "import kubeflow_tpu_torch.obs.exposition\n"
+        "import kubeflow_tpu_torch.obs.recorder\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"
@@ -66,4 +80,5 @@ def test_port_source_imports_no_jax(path):
 def test_the_whole_name_rule():
     assert _forbidden("kubeflow_tpu.obs.metrics")
     assert _forbidden("jax.numpy") and _forbidden("flax")
+    assert _forbidden("prometheus_client.core")
     assert not _forbidden("kubeflow_tpu_torch.ops")
