@@ -11,8 +11,10 @@ Phases (a failed phase raises; nothing is caught):
 
 1. kernels: each hand-written kernel against its plain PyTorch twin on
    the card, at the flagship's own shapes (8 layers, dim 1024, 8 heads,
-   2 kv heads, vocab 32768, bf16) and, for the flash forward with lse and
-   the two backward kernels, at the training shape (batch 4, 8 heads,
+   2 kv heads, vocab 32768, bf16), decode attention and the fused
+   QKV+RoPE also at the train config's MHA shapes (8 kv heads), and,
+   for the flash forward with lse and the two backward kernels, at the
+   training shape (batch 4, 8 heads,
    S=2048, head dim 128) and four more masks (SDPA's forward and backward
    as the library calls), element by element within the stated tolerance
    (see ``check_close``); the GEMV's int8 cases launch as the model
@@ -59,6 +61,35 @@ Phases (a failed phase raises; nothing is caught):
    then 6 steps of ``make_lm_train_step`` on one fixed batch (8 launches
    of each flash kernel per step, finite and falling losses), then one
    more step under ``torch.profiler``.
+7. ckpt: the train config through ``run_with_checkpointing`` on a seeded
+   stream of 8 distinct batches, checkpoints (1.34 GB a step) in a
+   directory under ``kubeflow_tpu_torch/build/`` that the run removes at
+   its end. Run A takes 8 steps with a background save every 2 (2 kept);
+   run B, from a fresh state and directory, is sent SIGTERM by its batch
+   iterator while step 3 is in flight and must return preempted with
+   step 3 committed by a synchronous save; run C, a fresh state of
+   another seed, resumes from B's directory (``realign_batches``) and
+   runs to step 8. Gates: the state C starts from equals B's saved state
+   leaf by leaf (``torch.equal``); C's losses at steps 4-8 equal A's
+   within 1e-4 relative (whether bit-equal is printed); 8 launches of
+   each flash kernel per step over the three runs; a byte flipped in the
+   newest step's shard makes ``restore_latest_valid`` fall back to the
+   step before it. Printed: checkpoint bytes, a save's blocking
+   milliseconds (the snapshot) and seconds and GB/s, a restore's
+   seconds, and the step time with and without a save in flight.
+8. pod_ckpt: ``python -m kubeflow_tpu_torch.serving`` with
+   ``KFT_SERVING_MODEL_DIR`` at run C's directory and the train config
+   (bf16; the f32 checkpoint is cast on restore). Gates: the pod is
+   ready and one greedy request equals ``generate`` on
+   ``restore_latest_valid({"params": template})``'s params; after a
+   newer step is committed (another seed's parameters, so the tokens
+   change), ``POST /v1/admin/swap`` answers 200 with it,
+   ``inference_model_swap_total`` reads 1 and the same request equals
+   ``generate`` on the new step; the pod exits 0 on SIGTERM, and the
+   launch counts it logs at exit (counted in the pod process from its
+   gateway's start, so over the two requests at the MHA shapes) show
+   every serving kernel launched. Printed: ready and restore seconds,
+   TTFT, swap seconds, the pod's launches.
 
 Output: one JSON line per phase, the ``{"kernels": [...]}`` summary,
 the card's name and power limit, and last
@@ -300,11 +331,14 @@ def kernel_phase(torch, timer):
 
     # ---- qkv_rope: (8, 1024) @ (1024, 1536), 10 rope heads, mixed
     # positions; plus a ragged width (N/2 not a multiple of the block's
-    # 32 pairs) and int8, so every output column is proven written.
+    # 32 pairs) and int8, so every output column is proven written; and
+    # the train config's MHA width (1024, 3072), 16 rope heads, which the
+    # pod serving a training checkpoint runs.
     for name, k, hd, heads, kv, int8 in [
             ("flagship", 1024, 128, 8, 2, False),
             ("ragged_width", 1024, 40, 3, 1, False),
-            ("int8", 1024, 128, 8, 2, True)]:
+            ("int8", 1024, 128, 8, 2, True),
+            ("mha", 1024, 128, 8, 8, False)]:
         n = (heads + 2 * kv) * hd
         x = randn(r, k)
         w = randn(k, n, std=k ** -0.5)
@@ -333,16 +367,19 @@ def kernel_phase(torch, timer):
 
     # ---- decode attention: B=8, H=8, Hkv=2, hd=128, capacity 1280; and
     # the serve phase's own shape: capacity max_len=2048, each slot at
-    # its request's last decode position (prompt length + 62).
+    # its request's last decode position (prompt length + 62); and that
+    # shape with 8 kv heads (MHA), the train config the pod serves from
+    # its checkpoint.
     b, h, hkv, hd = 8, 8, 2, 128
-    for name, cap, window, rolling, int8 in [
-            ("linear", 1280, None, False, False),
-            ("int8", 1280, None, False, True),
-            ("window", 1280, 256, False, False),
-            ("rolling", 512, 512, True, False),
-            ("serve_shape", 2048, None, False, False)]:
+    for name, cap, window, rolling, int8, kv in [
+            ("linear", 1280, None, False, False, hkv),
+            ("int8", 1280, None, False, True, hkv),
+            ("window", 1280, 256, False, False, hkv),
+            ("rolling", 512, 512, True, False, hkv),
+            ("serve_shape", 2048, None, False, False, hkv),
+            ("mha_serve_shape", 2048, None, False, False, h)]:
         q = randn(b, h, 1, hd)
-        kc, vc = randn(b, hkv, cap, hd), randn(b, hkv, cap, hd)
+        kc, vc = randn(b, kv, cap, hd), randn(b, kv, cap, hd)
         ks = vs = None
         if int8:
             ks = (kc.float().abs().amax(-1, keepdim=True) / 127.0)
@@ -353,7 +390,7 @@ def kernel_phase(torch, timer):
                              127).to(torch.int8)
         if rolling:
             pos_list = [0, 100, 511, 512, 700, 1279, 2000, 333]
-        elif name == "serve_shape":
+        elif name.endswith("serve_shape"):
             n = SERVE_LENGTHS  # serve_phase's prompts, in its order
             pos_list = [p + 62 for p in (n[0], n[1], n[2], n[3], n[4], n[0],
                                          n[5], n[5] + n[6])]
@@ -386,7 +423,7 @@ def kernel_phase(torch, timer):
             else:
                 lo = 0 if window is None else max(p - window + 1, 0)
                 live.append(min(p, cap - 1) - lo + 1)
-        rows = sum(live) * hkv
+        rows = sum(live) * kv
         item = 1 if int8 else 2
         nbytes = (q.numel() * 4 + rows * hd * item * 2
                   + (rows * 8 if int8 else 0))
@@ -1331,6 +1368,385 @@ def train_phase(torch):
     }
 
 
+# ---------------------------------------------------------- checkpoint
+
+# ckpt phase: the train config trained by ``run_with_checkpointing`` on a
+# seeded stream of CKPT_STEPS distinct batches; saves every
+# CKPT_SAVE_EVERY steps (in the background), CKPT_KEEP kept; run B is
+# preempted by SIGTERM while step CKPT_PREEMPT_AT is in flight.
+CKPT_STEPS, CKPT_SAVE_EVERY, CKPT_KEEP, CKPT_PREEMPT_AT = 8, 2, 2, 3
+# The resumed run's losses against the uninterrupted run's, relative.
+CKPT_LOSS_RTOL = 1e-4
+# pod_ckpt: the greedy request's prompt length and new tokens.
+POD_PROMPT, POD_NEW_TOKENS = 256, 32
+
+
+class TimedStep:
+    """The train step with its loss and host-synced milliseconds kept
+    per step, and whether a background save was in flight when the step
+    began (``manager`` is the run's CheckpointManager)."""
+
+    def __init__(self, torch, step, manager, losses, times):
+        self.torch, self.step, self.manager = torch, step, manager
+        self.losses, self.times = losses, times
+
+    def __call__(self, state, batch):
+        inflight = self.manager._inflight is not None and \
+            self.manager._inflight.is_alive()
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = self.step(state, batch)
+        loss = float(metrics["loss"])   # syncs the step
+        self.times.append({"step": state.step, "in_flight": inflight,
+                           "ms": (time.perf_counter() - t0) * 1e3})
+        self.losses[state.step] = loss
+        return state, metrics
+
+
+def state_leaves(state) -> dict:
+    from kubeflow_tpu_torch.models.checkpoint import (
+        _arrays_only,
+        _flatten_keys,
+    )
+
+    return dict(_flatten_keys(_arrays_only(state)))
+
+
+def states_equal(torch, a, b) -> bool:
+    """Leaf by leaf, bit for bit (``torch.equal``; the int32 step and
+    count as numbers)."""
+    la, lb = state_leaves(a), state_leaves(b)
+    if la.keys() != lb.keys():
+        return False
+    return all(torch.equal(x, lb[k]) if isinstance(x, torch.Tensor)
+               else int(x) == int(lb[k]) for k, x in la.items())
+
+
+def flip_byte(path, offset: int) -> None:
+    with open(path, "r+b") as fh:
+        fh.seek(offset)
+        byte = fh.read(1)
+        fh.seek(offset)
+        fh.write(bytes([byte[0] ^ 0xFF]))
+
+
+def ckpt_phase(torch, root):
+    """Runs A (uninterrupted), B (preempted) and C (resumed from B) of
+    ``run_with_checkpointing`` at the train config under ``root``, with
+    the launch counters zeroed just before A and read just after C; then
+    a corrupt-newest-step fallback, and a save and restore timed alone.
+    Returns the phase line and C's directory."""
+    import os
+    import signal
+    import tempfile
+
+    from kubeflow_tpu_torch.models import (
+        build_lm,
+        create_lm_state,
+        make_lm_train_step,
+        realign_batches,
+        run_with_checkpointing,
+    )
+    from kubeflow_tpu_torch.models.checkpoint import CheckpointManager
+    from kubeflow_tpu_torch.ops import _build
+
+    cfg = train_config(torch)
+    gen = torch.Generator(device="cuda").manual_seed(2025)
+    batches = [{"tokens": torch.randint(0, cfg.vocab,
+                                        (TRAIN_BATCH, TRAIN_SEQ),
+                                        device="cuda", generator=gen)}
+               for _ in range(CKPT_STEPS)]
+    step = make_lm_train_step(cfg=cfg)
+    losses = {"A": {}, "B": {}, "C": {}}
+    times = []
+
+    def fresh(seed):
+        return create_lm_state(build_lm(cfg), seed=seed)
+
+    def run(name, directory, state, stream, **kw):
+        mgr = CheckpointManager(directory, keep=CKPT_KEEP)
+        state, report = run_with_checkpointing(
+            TimedStep(torch, step, mgr, losses[name], times), state, stream,
+            mgr, save_every_steps=CKPT_SAVE_EVERY, **kw)
+        return state, report, mgr
+
+    dirs = {name: tempfile.mkdtemp(prefix=f"ckpt_{name}_", dir=root)
+            for name in ("A", "B", "M")}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state_a, rep_a, mgr_a = run("A", dirs["A"], fresh(0), batches,
+                                install_signal_handler=False)
+    wall_a = time.perf_counter() - t0
+    if rep_a.final_step != CKPT_STEPS or mgr_a.steps() != [6, 8]:
+        _fail(f"run A ended at {rep_a.final_step} with steps {mgr_a.steps()}")
+
+    def preempting(stream):
+        for i, batch in enumerate(stream):
+            if i == CKPT_PREEMPT_AT - 1:   # step CKPT_PREEMPT_AT in flight
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield batch
+
+    previous = signal.getsignal(signal.SIGTERM)
+    state_b, rep_b, mgr_b = run("B", dirs["B"], fresh(0),
+                                preempting(batches))
+    if signal.getsignal(signal.SIGTERM) != previous:
+        _fail("run_with_checkpointing left its SIGTERM handler installed")
+    if not (rep_b.preempted and rep_b.final_step == CKPT_PREEMPT_AT
+            and mgr_b.latest_committed_step() == CKPT_PREEMPT_AT):
+        _fail(f"run B: preempted={rep_b.preempted} at {rep_b.final_step}, "
+              f"committed {mgr_b.steps()}")
+
+    # Run C: a fresh state (another seed) resumes from B's directory.
+    # Its first step checks the restored state against B's, bit for bit.
+    mgr_c = CheckpointManager(dirs["B"], keep=CKPT_KEEP)
+    seen = {}
+    timed_c = TimedStep(torch, step, mgr_c, losses["C"], times)
+
+    def first_checked(state, batch):
+        if not seen:
+            seen["equal"] = states_equal(torch, state, state_b)
+            seen["step"] = state.step
+        return timed_c(state, batch)
+
+    def resumed():
+        yield from realign_batches(batches, mgr_c.last_restore["step"])
+
+    t0 = time.perf_counter()
+    state_c, rep_c = run_with_checkpointing(
+        first_checked, fresh(1), resumed(), mgr_c,
+        save_every_steps=CKPT_SAVE_EVERY, install_signal_handler=False)
+    wall_c = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    total_steps = CKPT_STEPS + CKPT_PREEMPT_AT + (CKPT_STEPS
+                                                  - CKPT_PREEMPT_AT)
+    for name in TRAIN_KERNELS:
+        if launches[name] != total_steps * cfg.layers:
+            _fail(f"{name} launched {launches[name]} times in the ckpt "
+                  f"runs' {total_steps} steps, not {cfg.layers} per step")
+    if rep_c.resumed_from_step != CKPT_PREEMPT_AT or \
+            rep_c.final_step != CKPT_STEPS:
+        _fail(f"run C resumed from {rep_c.resumed_from_step} and ended at "
+              f"{rep_c.final_step}")
+    if not seen.get("equal") or seen.get("step") != CKPT_PREEMPT_AT:
+        _fail("the state restored at run C's start is not B's saved state")
+    resumed_steps = range(CKPT_PREEMPT_AT + 1, CKPT_STEPS + 1)
+    rel = {i: abs(losses["C"][i] - losses["A"][i]) / abs(losses["A"][i])
+           for i in resumed_steps}
+    if not all(math.isfinite(losses["A"][i]) for i in losses["A"]):
+        _fail(f"non-finite losses in run A: {losses['A']}")
+    if not max(rel.values()) <= CKPT_LOSS_RTOL:
+        _fail(f"resumed losses differ from the uninterrupted run's: {rel}")
+    bit_equal = all(losses["C"][i] == losses["A"][i] for i in resumed_steps)
+
+    # A byte flipped inside the newest step's shard: the restore falls
+    # back to the step before it.
+    shard = os.path.join(dirs["A"], str(CKPT_STEPS), "shard-00000.bin")
+    ckpt_bytes = os.path.getsize(shard)
+    flip_byte(shard, ckpt_bytes // 2)
+    mgr_f = CheckpointManager(dirs["A"], keep=CKPT_KEEP)
+    fallback = mgr_f.restore_latest_valid(state_a)
+    if fallback is None or fallback[1] != CKPT_STEPS - CKPT_SAVE_EVERY or \
+            mgr_f.metrics.restore_total.get("skipped_corrupt") != 1:
+        _fail(f"a corrupt step {CKPT_STEPS} did not fall back to step "
+              f"{CKPT_STEPS - CKPT_SAVE_EVERY}: {mgr_f.metrics.restore_total}")
+    del fallback
+
+    # A save and a restore alone: save_async's blocking part is the
+    # snapshot (nothing in flight before it), wait() the durable write.
+    mgr_m = CheckpointManager(dirs["M"], keep=1)
+    saves = []
+    for rep in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr_m.save_async(100 + rep, state_a)
+        blocking = time.perf_counter() - t0
+        mgr_m.wait()
+        total = time.perf_counter() - t0
+        saves.append({"blocking_ms": blocking * 1e3, "save_s": total,
+                      "gb_per_s": ckpt_bytes / total / 1e9})
+    # The commit's share of a save: one streamed sha256 over the
+    # committed shard file (the manifest's file digest).
+    from kubeflow_tpu_torch.models.checkpoint import _sha256_file
+
+    t0 = time.perf_counter()
+    _sha256_file(os.path.join(dirs["M"], "101", "shard-00000.bin"))
+    file_hash_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = mgr_m.restore_latest_valid(state_a)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if restored is None or not states_equal(torch, restored[0], state_a):
+        _fail("a timed save did not restore to the state it saved")
+    del restored, state_a, state_b, state_c
+    import shutil
+
+    for name in ("A", "M"):
+        shutil.rmtree(dirs[name], ignore_errors=True)
+
+    plain = [t["ms"] for t in times if not t["in_flight"]]
+    busy = [t["ms"] for t in times if t["in_flight"]]
+    line = {
+        "phase": "ckpt", "steps": CKPT_STEPS,
+        "save_every_steps": CKPT_SAVE_EVERY, "keep": CKPT_KEEP,
+        "ckpt_bytes": ckpt_bytes,
+        "losses": {k: [v[i] for i in sorted(v)] for k, v in losses.items()},
+        "resumed_loss_rel_err": rel, "resumed_losses_bit_equal": bit_equal,
+        "restored_state_bit_equal": seen["equal"],
+        "saves": {"A": rep_a.saves, "B": rep_b.saves, "C": rep_c.saves},
+        "wall_s": {"A": wall_a, "C": wall_c},
+        "timed_saves": saves, "file_hash_s": file_hash_s,
+        "restore_s": restore_s,
+        "corrupt_fallback_step": CKPT_STEPS - CKPT_SAVE_EVERY,
+        "step_ms_no_save_in_flight": {
+            "median": statistics.median(plain), "n": len(plain)},
+        "step_ms_save_in_flight": {
+            "median": statistics.median(busy) if busy else None,
+            "n": len(busy)},
+        "step_ms": times, "launches": launches,
+    }
+    return line, dirs["B"]
+
+
+def pod_ckpt_check(torch, directory) -> dict:
+    """The pod entrypoint serving the train config from ``directory`` (run
+    C's checkpoints): ready, one greedy request equal to ``generate`` on
+    ``restore_latest_valid({"params": template})``'s params; then a newer
+    step is committed (the parameters of another seed, so that the
+    request's tokens change), ``POST /v1/admin/swap`` answers 200 with
+    it, ``inference_model_swap_total`` reads 1, and the same request
+    equals ``generate`` on the new step; exit 0 on SIGTERM. The launch
+    counts are the pod's own, from the record it logs at exit: every
+    serving kernel must have launched in the pod."""
+    import os
+    import signal
+    import socket
+    import urllib.request
+    from pathlib import Path
+
+    from kubeflow_tpu_torch.models import build_lm, create_lm_state
+    from kubeflow_tpu_torch.models.checkpoint import CheckpointManager
+    from kubeflow_tpu_torch.models.decoding import generate
+    from kubeflow_tpu_torch.obs.exposition import parse_text, sample_value
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.serving.__main__ import build_model
+
+    cfg = train_config(torch)
+    dims = {"vocab": cfg.vocab, "layers": cfg.layers, "dim": cfg.dim,
+            "heads": cfg.heads, "kv_heads": cfg.kv_heads,
+            "dtype": "bfloat16"}
+    env_model = {"KFT_SERVING_CONFIG": json.dumps(dims)}
+    serve_cfg, template = build_model(env_model)
+    gen = torch.Generator().manual_seed(99)
+    prompt = torch.randint(0, cfg.vocab, (POD_PROMPT,), generator=gen).tolist()
+
+    def expected():
+        mgr = CheckpointManager(directory)
+        restored, got_step = mgr.restore_latest_valid({"params": template})
+        tokens = generate(serve_cfg, restored["params"], [prompt],
+                          POD_NEW_TOKENS)[0].tolist()
+        return tokens, got_step
+
+    want1, step1 = expected()
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KFT_SERVING_")}
+    env.update(env_model, KFT_SERVING_PORT=str(port),
+               KFT_SERVING_MODEL_DIR=directory)
+    log_path = _build.BUILD_DIR / "pod_ckpt.log"
+    url = f"http://127.0.0.1:{port}"
+    started = time.perf_counter()
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kubeflow_tpu_torch.serving"],
+            cwd=Path(__file__).resolve().parent, env=env, stdout=log,
+            stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    _fail(f"the pod exited with {proc.returncode} before "
+                          f"it was ready: {log_path.read_text()[-2000:]}")
+                try:
+                    if http_json(url, "/readyz") == (200, {"ready": True}):
+                        break
+                except OSError:
+                    pass
+                if time.perf_counter() - started > POD_READY_TIMEOUT_S:
+                    _fail(f"the pod was not ready within "
+                          f"{POD_READY_TIMEOUT_S} s")
+                time.sleep(0.5)
+            ready_s = time.perf_counter() - started
+            reply = sse_request(url, {"prompt": prompt,
+                                      "max_new_tokens": POD_NEW_TOKENS})
+            if reply["tokens"] != want1:
+                _fail(f"the pod's stream from checkpoint step {step1} "
+                      "differs from generate() on the restored params")
+
+            # A newer step, committed into the served directory.
+            newer = create_lm_state(build_lm(cfg), seed=2)
+            newer.step = step1 + 1
+            CheckpointManager(directory, keep=CKPT_KEEP).save(newer.step,
+                                                             newer)
+            del newer
+            want2, step2 = expected()
+            if want2 == want1:
+                _fail("the newer step's greedy tokens equal the served "
+                      "step's: the swap check would prove nothing")
+            t0 = time.perf_counter()
+            status, payload = http_json(url, "/v1/admin/swap", {})
+            if status != 200 or payload.get("info", {}).get("step") != step2:
+                _fail(f"/v1/admin/swap answered {status} {payload}, not "
+                      f"200 with step {step2}")
+            while http_json(url, "/v1/status")[1].get("swaps", 0) < 1:
+                if time.perf_counter() - t0 > GATEWAY_TIMEOUT_S:
+                    _fail("the staged swap was never applied")
+                time.sleep(0.1)
+            swap_s = time.perf_counter() - t0
+            with urllib.request.urlopen(url + "/metrics",
+                                        timeout=GATEWAY_TIMEOUT_S) as r:
+                swaps = sample_value(parse_text(r.read().decode()),
+                                     "inference_model_swap_total")
+            if swaps != 1:
+                _fail(f"inference_model_swap_total reads {swaps}, not 1")
+            reply2 = sse_request(url, {"prompt": prompt,
+                                       "max_new_tokens": POD_NEW_TOKENS})
+            if reply2["tokens"] != want2:
+                _fail(f"after the swap to step {step2} the pod's stream "
+                      "differs from generate() on that step's params")
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=120)
+            if code != 0:
+                _fail(f"the pod exited with {code} on SIGTERM: "
+                      f"{log_path.read_text()[-2000:]}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    records = [json.loads(line) for line in log_path.read_text().splitlines()
+               if line.startswith("{")]
+    restore_s = next((r["restore_s"] for r in records if "restore_s" in r),
+                     None)
+    if restore_s is None:
+        _fail("the pod did not log the checkpoint step it serves")
+    launches = next((r["kernel_launches"] for r in records
+                     if "kernel_launches" in r), None)
+    if launches is None:
+        _fail("the pod did not log its kernel launches at exit")
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
+            _fail(f"kernel {name} was never launched by the pod serving "
+                  "the checkpoint")
+    return {"phase": "pod_ckpt", "served_step": step1, "swapped_step": step2,
+            "ready_s": ready_s, "restore_s": restore_s,
+            "ttft_s": reply["arrivals"][0] - reply["sent"],
+            "swap_s": swap_s, "exit_code": code, "launches": launches,
+            "prompt": POD_PROMPT, "new_tokens": POD_NEW_TOKENS}
+
+
 def main() -> int:
     import torch
 
@@ -1373,6 +1789,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = train_phase(torch)
     print(json.dumps(train), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    import shutil
+    import tempfile
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="ckpt_smoke_", dir=_build.BUILD_DIR)
+    try:
+        ckpt, directory = ckpt_phase(torch, root)
+        print(json.dumps(ckpt), flush=True)
+        torch.cuda.empty_cache()
+        pod = pod_ckpt_check(torch, directory)
+        print(json.dumps(pod), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     main_case = {"gemv": "tied_head", "qkv_rope": "flagship",
                  "decode_attention": "serve_shape",
                  "flash_attention": "causal", "flash_dq": "train_causal",
@@ -1382,7 +1813,9 @@ def main() -> int:
     # flash forward runs on both: ``launches`` is the serve run's,
     # ``train_launches`` the train run's; ``int8_launches`` are the int8
     # phase's engine run's (int8 weights: every gemv and qkv_rope launch
-    # there takes an int8 weight).
+    # there takes an int8 weight); ``ckpt_launches`` the ckpt phase's
+    # three runs'; ``pod_ckpt_launches`` the checkpoint-restored pod's
+    # own, counted in its process over its two requests.
     launches = {**serve["launches"], "flash_dq": train["launches"]["flash_dq"],
                 "flash_dkv": train["launches"]["flash_dkv"]}
     meta = {
@@ -1411,7 +1844,9 @@ def main() -> int:
             "bound_by": case["bound_by"], "library_ms": case["library_ms"],
             "case": case["case"],
             "int8_launches": int8["launches"][name],
-            "train_launches": train["launches"][name]})
+            "train_launches": train["launches"][name],
+            "ckpt_launches": ckpt["launches"][name],
+            "pod_ckpt_launches": pod["launches"][name]})
     print(json.dumps({"kernels": summary}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

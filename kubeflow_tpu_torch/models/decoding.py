@@ -33,9 +33,19 @@ Where the port differs from the reference, and why:
   the int8 qkv_rope kernel), and ``generate(quantize_weights=True)``
   quantises on the way in.
 
-The stacked-params path (``StackedDecodeParams``), MoE decode and the
-rolling-cache mid-sequence chunk belong to later slices (ROADMAP A3,
-A12) and raise here.
+- Rolling caches take mid-sequence chunks (chunked prefill) as the
+  reference does: one softmax over the ring as it stood before the chunk
+  and the chunk itself, then the chunk's tail is written into the ring
+  in place, in two parts where it wraps past the ring's end.
+- :class:`StackedDecodeParams` (:func:`stack_decode_params`) holds the
+  per-layer weights stacked on a leading layer axis, q/k/v concatenated
+  and matmul weights cast to the compute dtype once. The reference runs
+  it unrolled or under ``lax.scan``; the port runs it as a loop over the
+  layer axis through the same block code as the per-layer params, so the
+  two forms give the same numbers (on the card the stacked qkv feeds the
+  fused QKV+RoPE kernel directly).
+
+MoE decode belongs to a later slice (ROADMAP A12) and raises here.
 """
 
 from __future__ import annotations
@@ -336,6 +346,79 @@ class KVCache:
                                    v_scale=copy(self.v_scale))
 
 
+@dataclasses.dataclass
+class StackedDecodeParams:
+    """Decode-time view of the params: per-layer weights stacked on a
+    leading layer axis, the q/k/v kernels concatenated into one (the
+    fused QKV+RoPE kernel's layout), and every matmul weight cast to the
+    compute dtype once. Norm scales stay f32. Build with
+    :func:`stack_decode_params`; pass it wherever
+    ``forward_with_cache``/``generate`` take ``params``. The layers run
+    as a loop over the leading axis (the reference's ``scan`` option has
+    no counterpart here)."""
+
+    norm0: torch.Tensor      # (L, D) f32
+    qkv: torch.Tensor        # (L, D, (H + 2*Hkv) * hd) compute dtype
+    proj: torch.Tensor       # (L, H*hd, D)
+    norm1: torch.Tensor      # (L, D) f32
+    up: torch.Tensor         # (L, D, F)
+    down: torch.Tensor       # (L, F, D)
+    embed: torch.Tensor      # (V, D) compute dtype (the tied head too)
+    final_norm: torch.Tensor  # (D,) f32
+
+
+@torch.no_grad()
+def stack_decode_params(cfg: LMConfig,
+                        params: dict[str, Any]) -> StackedDecodeParams:
+    """One-time restructure of the training params for the stacked
+    decode form; do it outside any decode loop."""
+    if cfg.moe_experts:
+        raise ValueError(
+            "MoE blocks are heterogeneous (dense FFN / MoE alternate); the "
+            "stacked decode form requires uniform layers - pass the raw "
+            "params instead")
+    if isinstance(params["embed"]["embedding"], Int8Linear):
+        raise ValueError(
+            "stack_decode_params takes the raw training params; int8 decode "
+            "weights (quantize_decode_params) run the unrolled path")
+    dt = cfg.dtype
+    blocks = [params[f"block_{i}"] for i in range(cfg.layers)]
+
+    def stack(name, sub="kernel", dtype=None):
+        out = torch.stack([blk[name][sub] for blk in blocks])
+        return out if dtype is None else out.to(dtype)
+
+    qkv = torch.stack([
+        torch.cat([blk[name]["kernel"] for name in ("q_proj", "k_proj",
+                                                    "v_proj")], dim=1)
+        for blk in blocks]).to(dt)
+    return StackedDecodeParams(
+        norm0=stack("RMSNorm_0", "scale"), qkv=qkv,
+        proj=stack("proj", dtype=dt), norm1=stack("RMSNorm_1", "scale"),
+        up=stack("up", dtype=dt), down=stack("down", dtype=dt),
+        embed=params["embed"]["embedding"].to(dt),
+        final_norm=params["final_norm"]["scale"])
+
+
+def _layer_views(cfg: LMConfig, sp: StackedDecodeParams) -> dict[str, Any]:
+    """The per-layer params dict over views of the stacked tensors: layer
+    i is index i of the leading axis. A view carries its qkv only as the
+    block's fused weight (no q/k/v entries): ``_block_step`` runs one
+    matmul on it, as the reference's stacked scan does."""
+    out: dict[str, Any] = {"embed": {"embedding": sp.embed},
+                           "final_norm": {"scale": sp.final_norm}}
+    for i in range(cfg.layers):
+        out[f"block_{i}"] = {
+            "RMSNorm_0": {"scale": sp.norm0[i]},
+            FUSED_QKV_KEY: {"w": sp.qkv[i], "scale": None},
+            "proj": {"kernel": sp.proj[i]},
+            "RMSNorm_1": {"scale": sp.norm1[i]},
+            "up": {"kernel": sp.up[i]},
+            "down": {"kernel": sp.down[i]},
+        }
+    return out
+
+
 def _quantize_rows(x):
     """(B, Hkv, T, hd) -> int8 payload + per-row absmax scale
     (B, Hkv, T, 1), symmetric: row_max / 127."""
@@ -402,18 +485,67 @@ def _cached_attention(cfg: LMConfig, q, ck, cv, pos, t, ks=None, vs=None):
     return out.reshape(b, h, t, hd).to(q.dtype)
 
 
-def _write_rolling_prefill(cache_buf, chunk, capacity: int) -> None:
-    """Write the last ``capacity`` positions of an empty-cache prefill
-    chunk into the ring in place (slot = position % capacity)."""
+def _rolling_chunk_attention(cfg: LMConfig, q, k, v, ck, cv, pos: int,
+                             ks=None, vs=None):
+    """Mid-sequence multi-token chunk over a ring: one softmax over both
+    key sources, the ring as it stood BEFORE the chunk (slot j holds the
+    newest position ≡ j (mod capacity) that is < pos) and the chunk
+    itself (causal + window). The caller writes the chunk after this
+    read: writing first would evict positions the chunk's earliest
+    queries still need. q (B, H, T, hd); k/v (B, Hkv, T, hd) the fresh,
+    unquantised chunk keys; ck/cv (B, Hkv, capacity, hd) the ring with
+    optional per-row int8 scales ks/vs."""
+    b, h, t, hd = q.shape
+    hkv, capacity = ck.shape[1], ck.shape[2]
+    window = cfg.attn_window
+    compute = q.dtype
+    qg = q.reshape(b, hkv, h // hkv, t, hd).float()
+    scale = hd ** -0.5
+    dev = q.device
+
+    s_cache = torch.einsum("bkgtd,bkld->bkgtl", qg,
+                           ck.to(compute).float()) * scale
+    if ks is not None:
+        s_cache = s_cache * ks[..., 0][:, :, None, None, :]
+    newest = pos - 1
+    cache_pos = newest - torch.remainder(
+        newest - torch.arange(capacity, device=dev), capacity)
+    rows = pos + torch.arange(t, device=dev)[:, None]
+    keep = (cache_pos >= 0) & (cache_pos > rows - window)
+    s_cache = torch.where(keep, s_cache, torch.full_like(s_cache, NEG_INF))
+
+    s_self = torch.einsum("bkgtd,bkcd->bkgtc", qg,
+                          k.to(compute).float()) * scale
+    r = torch.arange(t, device=dev)[:, None]
+    c = torch.arange(t, device=dev)[None, :]
+    keep = (c <= r) & (c > r - window)
+    s_self = torch.where(keep, s_self, torch.full_like(s_self, NEG_INF))
+
+    w = torch.softmax(torch.cat([s_cache, s_self], dim=-1), dim=-1)
+    w_cache, w_self = w[..., :capacity], w[..., capacity:]
+    if vs is not None:
+        w_cache = w_cache * vs[..., 0][:, :, None, None, :]
+    out = (torch.einsum("bkgtl,bkld->bkgtd", w_cache.to(compute).float(),
+                        cv.to(compute).float())
+           + torch.einsum("bkgtc,bkcd->bkgtd", w_self.to(compute).float(),
+                          v.to(compute).float()))
+    return out.reshape(b, h, t, hd).to(q.dtype)
+
+
+def _write_rolling_chunk(cache_buf, chunk, pos: int, capacity: int) -> None:
+    """Write a chunk at global positions [pos, pos + T) into the ring in
+    place: position p goes to slot p % capacity, and only the last
+    min(T, capacity) positions are kept (the rest are already evicted).
+    The kept run starts at slot (pos + T - kept) % capacity and, where it
+    passes the ring's end, goes on at slot 0."""
     t = chunk.shape[2]
-    if t <= capacity:
-        cache_buf[:, :, :t] = chunk
-        return
-    tail = chunk[:, :, t - capacity:]
-    r0 = t % capacity  # slot of position t - capacity
-    first = capacity - r0
-    cache_buf[:, :, r0:] = tail[:, :, :first]
-    cache_buf[:, :, :r0] = tail[:, :, first:]
+    kept = min(t, capacity)
+    tail = chunk[:, :, t - kept:]
+    start = (pos + t - kept) % capacity
+    first = min(kept, capacity - start)
+    cache_buf[:, :, start:start + first] = tail[:, :, :first]
+    if first < kept:
+        cache_buf[:, :, :kept - first] = tail[:, :, first:]
 
 
 def _attend_and_cache(cfg: LMConfig, q, k, v, ck, cv, pos: int, empty: bool,
@@ -443,25 +575,27 @@ def _attend_and_cache(cfg: LMConfig, q, k, v, ck, cv, pos: int, empty: bool,
         if rolling:
             return _rolling_attention(cfg, q, ck, cv, pos, ks_buf, vs_buf)
         return _decode_attention(cfg, q, ck, cv, pos, ks_buf, vs_buf)
-    if empty:
+    if empty and not rolling:
         # Empty-cache prefill (pos == 0): the chunk attends to itself on
         # the UNQUANTISED k/v; the cache write happens on the side.
-        if rolling:
-            _write_rolling_prefill(ck, k_store, capacity)
-            _write_rolling_prefill(cv, v_store, capacity)
-            if quantized:
-                _write_rolling_prefill(ks_buf, k_s, capacity)
-                _write_rolling_prefill(vs_buf, v_s, capacity)
-            return _prefill_attention(cfg, q, k, v)
         write(0)
         if PREFILL_IMPL == "dense" and not quantized:
             return _cached_attention(cfg, q, ck, cv, pos, t)
         return _prefill_attention(cfg, q, k, v)
     if rolling:
-        raise NotImplementedError(
-            "multi-token chunks on a rolling cache belong to a later slice "
-            "of the port (ROADMAP A3; the engine serves rolling slots with "
-            "monolithic prefill)")
+        # An empty ring attends to the chunk alone (the flash kernel on
+        # the card); a filled one reads the ring as it stood and the
+        # chunk in one softmax. Either way the chunk's tail is written
+        # after the read.
+        out = (_prefill_attention(cfg, q, k, v) if empty else
+               _rolling_chunk_attention(cfg, q, k, v, ck, cv, pos, ks_buf,
+                                        vs_buf))
+        for buf, chunk in ((ck, k_store), (cv, v_store), (ks_buf, k_s),
+                           (vs_buf, v_s)):
+            if buf is not None:
+                _write_rolling_chunk(buf, chunk, pos, capacity)
+        return out
+    # Mid-sequence chunk on a linear cache: dense masked read.
     write(pos)
     return _cached_attention(cfg, q, ck, cv, pos, t, ks_buf, vs_buf)
 
@@ -478,16 +612,23 @@ def _block_step(cfg: LMConfig, blk, x, ck, cv, pos: int, empty: bool,
     if t == 1 and _fused_step_wanted(h):
         pos_vec = torch.full((b,), pos, dtype=torch.int32, device=x.device)
         fused = _fused_qkv(cfg, blk, h, pos_vec)
+    hq, hkv = cfg.heads, cfg.num_kv_heads
     if fused is not None:
         q, k, v = fused
+    elif "q_proj" not in blk:  # a stacked layer view: one qkv matmul
+        y = _mm(h, blk[FUSED_QKV_KEY]["w"], cfg.dtype).to(cfg.dtype)
+        y = y.reshape(b, t, hq + 2 * hkv, cfg.head_dim).transpose(1, 2)
+        q = apply_rope(y[:, :hq], offset=pos)
+        k = apply_rope(y[:, hq:hq + hkv], offset=pos)
+        v = y[:, hq + hkv:]
     else:
         def proj(name, n):
             y = _mm(h, blk[name]["kernel"], cfg.dtype).to(cfg.dtype)
             return y.reshape(b, t, n, cfg.head_dim).transpose(1, 2)
 
-        q = apply_rope(proj("q_proj", cfg.heads), offset=pos)
-        k = apply_rope(proj("k_proj", cfg.num_kv_heads), offset=pos)
-        v = proj("v_proj", cfg.num_kv_heads)
+        q = apply_rope(proj("q_proj", hq), offset=pos)
+        k = apply_rope(proj("k_proj", hkv), offset=pos)
+        v = proj("v_proj", hkv)
     out = _attend_and_cache(cfg, q, k, v, ck, cv, pos, empty, rolling,
                             ks_buf, vs_buf)
     out = out.transpose(1, 2).reshape(b, t, cfg.dim)
@@ -537,10 +678,13 @@ def forward_with_cache(cfg: LMConfig, params: dict[str, Any], tokens,
     (logits (B, T, vocab) f32, the advanced cache). The cache's tensors
     are written IN PLACE; the returned cache shares them.
     ``last_logits_only`` computes the head for the final position only
-    ((B, 1, vocab)), what a prefill-then-sample caller needs."""
+    ((B, 1, vocab)), what a prefill-then-sample caller needs. ``params``
+    is the per-layer dict or a :class:`StackedDecodeParams`."""
     dev = resolve_device(device)
     if cfg.moe_experts:
         raise NotImplementedError("MoE decode belongs to a later slice")
+    if isinstance(params, StackedDecodeParams):
+        params = _layer_views(cfg, params)
     if _params_device(params) != dev or cache.k.device != dev:
         raise ValueError(f"params and cache must be on {dev}")
     tokens = torch.as_tensor(tokens, device=dev).long()
@@ -592,8 +736,8 @@ def generate(cfg: LMConfig, params: dict[str, Any], prompt,
     int seed or a ``torch.Generator``) is required when sampling: each
     token draws Gumbel noise from it, first token first.
     ``quantize_weights`` decodes through :func:`quantize_decode_params`
-    of ``params`` (the raw training params); quantised params can as well
-    be passed directly."""
+    of ``params`` (the raw training params); quantised params, or a
+    :class:`StackedDecodeParams`, can as well be passed directly."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
     if cfg.moe_experts:
@@ -603,6 +747,9 @@ def generate(cfg: LMConfig, params: dict[str, Any], prompt,
                          "a torch.Generator) - a fixed default would return "
                          "identical samples on every call")
     if quantize_weights:
+        if isinstance(params, StackedDecodeParams):
+            raise ValueError("quantize_weights takes the raw training "
+                             "params, not StackedDecodeParams")
         if isinstance(params["embed"]["embedding"], Int8Linear):
             raise ValueError("quantize_weights takes the raw training "
                              "params; these are already quantised")

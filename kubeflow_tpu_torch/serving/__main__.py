@@ -10,10 +10,12 @@ template):
   e.g. ``"bfloat16"``, the kernels' dtype); defaults to a small dev
   model. The weights are a random init (``init_params``, seed 0, in the
   config's dtype): not the reference's ``jax.random.key(0)`` numbers.
-- ``KFT_SERVING_MODEL_DIR`` — checkpoint restore and hot-swap reload
-  belong to a later slice of the port (ROADMAP A8): when it is set,
-  ``main`` raises instead of serving random weights in the checkpoint's
-  place.
+- ``KFT_SERVING_MODEL_DIR`` — checkpoint directory served from; the
+  newest valid step loads at boot (``restore_latest_valid`` into
+  ``build_model``'s params, each leaf cast to their dtype, so an f32
+  training checkpoint serves in the config's dtype) and again on every
+  ``POST /v1/admin/swap`` (hot swap). With no valid step the pod warns
+  and serves the initialised params; the swap then answers 409.
 - ``KFT_SERVING_MAX_BATCH`` / ``KFT_SERVING_MAX_LEN`` — decode slots /
   slot capacity. ``KFT_SERVING_EOS`` — optional eos token id.
   ``KFT_SERVING_PORT`` — HTTP port (default 8800).
@@ -30,7 +32,9 @@ template):
   actuations.
 
 The pod runs on the card; ``main(device="cpu")`` is for tests. SIGTERM
-or SIGINT stops the gateway and the scheduler, and ``main`` returns.
+or SIGINT stops the gateway and the scheduler, logs the kernel launches
+made while serving (the record's ``kernel_launches``, counted from the
+gateway's start; a CPU twin is no launch), and ``main`` returns.
 """
 
 from __future__ import annotations
@@ -40,8 +44,12 @@ import logging
 import os
 import signal
 import threading
+import time
 
-log = logging.getLogger(__name__)
+# Named, not ``__name__``: run with ``python -m`` this module is
+# "__main__", outside the port's logger tree that
+# configure_structured_logging sets up, and its records would be lost.
+log = logging.getLogger("kubeflow_tpu_torch.serving.__main__")
 
 
 def build_model(env: dict, device=None):
@@ -65,6 +73,31 @@ def build_model(env: dict, device=None):
     return cfg, params
 
 
+def make_reload_fn(model_dir: str, template):
+    """The hot-swap hook: load the newest digest-valid checkpoint into
+    the template's shape and dtypes; (None, info) when nothing valid
+    exists (the gateway answers 409 and serving continues on the current
+    params)."""
+
+    def reload_fn():
+        from kubeflow_tpu_torch.models.checkpoint import (
+            CheckpointManager,
+            _world_identity,
+        )
+
+        # The live world's identity: in a multi-process deployment every
+        # rank restores the step process 0 validated and broadcast. A
+        # single process starts no process group.
+        manager = CheckpointManager(model_dir, **_world_identity())
+        result = manager.restore_latest_valid({"params": template})
+        if result is None:
+            return None, {"dir": model_dir, "step": None}
+        state, step = result
+        return state["params"], {"dir": model_dir, "step": step}
+
+    return reload_fn
+
+
 def main(argv=None, device=None) -> None:
     from kubeflow_tpu_torch.autopilot import (
         Autopilot,
@@ -73,19 +106,27 @@ def main(argv=None, device=None) -> None:
     )
     from kubeflow_tpu_torch.obs import configure_structured_logging
     from kubeflow_tpu_torch.obs.envknob import env_number
+    from kubeflow_tpu_torch.ops import _build
     from kubeflow_tpu_torch.serving.engine import make_engine
     from kubeflow_tpu_torch.serving.gateway import InferenceGateway
 
     configure_structured_logging()
     env = dict(os.environ)
-    model_dir = env.get("KFT_SERVING_MODEL_DIR", "")
-    if model_dir:
-        raise NotImplementedError(
-            f"KFT_SERVING_MODEL_DIR={model_dir!r}: checkpoint restore and "
-            "hot-swap reload belong to a later slice of the port (ROADMAP "
-            "A8); refusing to serve random weights in the checkpoint's "
-            "place")
     cfg, params = build_model(env, device=device)
+    model_dir = env.get("KFT_SERVING_MODEL_DIR", "")
+    reload_fn = None
+    if model_dir:
+        reload_fn = make_reload_fn(model_dir, params)
+        t0 = time.perf_counter()
+        loaded, info = reload_fn()
+        if loaded is not None:
+            params = loaded
+            log.info("serving checkpoint step %s from %s", info["step"],
+                     model_dir, extra={
+                         "restore_s": time.perf_counter() - t0})
+        else:
+            log.warning("no valid checkpoint under %s; serving "
+                        "initialised params", model_dir)
     eos = env.get("KFT_SERVING_EOS")
     chunk = env.get("KFT_SERVING_PREFILL_CHUNK")
     spec = env.get("KFT_SERVING_SPEC_NGRAM", "").lower() in (
@@ -107,9 +148,11 @@ def main(argv=None, device=None) -> None:
             shed_factor=env_number("KFT_AUTOPILOT_SHED_FACTOR", 4,
                                    cast=int, minimum=2),
         ))
+    _build.reset_launches()
     gateway = InferenceGateway(
         engine,
         port=int(env.get("KFT_SERVING_PORT", "8800")),
+        reload_fn=reload_fn,
         autopilot=autopilot,
     ).start()
     log.info("inference gateway serving on :%d (batched=%s, device=%s)",
@@ -119,6 +162,8 @@ def main(argv=None, device=None) -> None:
         signal.signal(sig, lambda *_: stop.set())
     stop.wait()
     gateway.stop()
+    log.info("kernel launches while serving",
+             extra={"kernel_launches": dict(_build.LAUNCHES)})
 
 
 if __name__ == "__main__":

@@ -660,3 +660,104 @@ def test_int8_cache_generate_at_unaligned_layer_offsets(card, monkeypatch,
     card_logits = first_decode_logits(params, "cuda").cpu()
     cpu_logits = first_decode_logits(cpu, "cpu")
     assert float((card_logits - cpu_logits).abs().max()) <= TOL_LOGITS_TWINS
+
+
+def _card_lm_state(seed):
+    from kubeflow_tpu_torch.models import LMConfig, build_lm, create_lm_state
+
+    cfg = LMConfig(vocab=512, layers=2, dim=256, heads=4,
+                   dtype=torch.bfloat16)
+    return cfg, create_lm_state(build_lm(cfg), seed=seed)
+
+
+def _assert_states_equal(a, b):
+    from kubeflow_tpu_torch.models.checkpoint import (
+        _arrays_only,
+        _flatten_keys,
+    )
+
+    la, lb = (dict(_flatten_keys(_arrays_only(s))) for s in (a, b))
+    assert la.keys() == lb.keys()
+    for key, leaf in la.items():
+        if isinstance(leaf, torch.Tensor):
+            assert leaf.is_cuda and lb[key].is_cuda, key
+            assert leaf.dtype == lb[key].dtype, key
+            assert torch.equal(leaf, lb[key]), key
+        else:
+            assert int(leaf) == int(lb[key]), key
+
+
+def test_checkpoint_of_a_card_state_restores_bit_equal(card, tmp_path):
+    """A trained state on the card saved and restored into a fresh card
+    template (another seed): every leaf equal, on the card, in its dtype
+    (f32 params that require grad, bf16 mu, f32 nu)."""
+    from kubeflow_tpu_torch.models import make_lm_train_step
+    from kubeflow_tpu_torch.models.checkpoint import CheckpointManager
+
+    cfg, state = _card_lm_state(3)
+    tokens = torch.randint(0, cfg.vocab, (2, 128), device="cuda",
+                           generator=card)
+    state, _ = make_lm_train_step(cfg=cfg)(state, {"tokens": tokens})
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(state.step, state)
+    _, like = _card_lm_state(4)
+    restored, step = mgr.restore_latest_valid(like)
+    assert step == 1 and restored.step == 1
+    _assert_states_equal(restored, state)
+    assert restored.params["embed"]["embedding"].requires_grad
+    assert restored.opt_state.mu["embed"]["embedding"].dtype == torch.bfloat16
+
+
+def test_async_snapshot_is_independent_of_the_next_in_place_step(card,
+                                                                 tmp_path):
+    """save_async returns once its host copy is taken; the step that
+    follows writes the same tensors in place, and the committed step
+    still holds the state as it was at the call."""
+    from kubeflow_tpu_torch.models import make_lm_train_step
+    from kubeflow_tpu_torch.models.checkpoint import CheckpointManager
+
+    cfg, state = _card_lm_state(5)
+    _, before = _card_lm_state(5)   # the same values, kept apart
+    step = make_lm_train_step(cfg=cfg)
+    tokens = torch.randint(0, cfg.vocab, (2, 128), device="cuda",
+                           generator=card)
+    mgr = CheckpointManager(tmp_path)
+    mgr.save_async(0, state)
+    for _ in range(3):
+        state, _ = step(state, {"tokens": tokens})
+    mgr.wait()
+    _, like = _card_lm_state(6)
+    restored, saved_step = mgr.restore_latest_valid(like)
+    assert saved_step == 0 and state.step == 3
+    _assert_states_equal(restored, before)
+
+
+def test_stacked_and_rolling_chunk_decode_on_the_card(card):
+    """On the card the stacked params give the per-layer form's bits
+    (same kernels: the stacked qkv feeds the fused QKV+RoPE launch), and
+    a windowed model fed to a rolling cache in chunks of 50 (the ring
+    holds 64: every chunk after the first wraps it) ends on the logits
+    that token-by-token decode (flash-decode on the ring) gives."""
+    from kubeflow_tpu_torch.models import decoding as tdec
+    from kubeflow_tpu_torch.models.transformer import LMConfig, init_params
+
+    cfg = LMConfig(vocab=512, layers=2, dim=256, heads=4, kv_heads=2,
+                   dtype=torch.bfloat16, attn_window=64)
+    params = init_params(cfg, seed=7, device="cuda", dtype=torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab, (1, 40), device="cuda",
+                           generator=card)
+    stacked = tdec.stack_decode_params(cfg, params)
+    assert torch.equal(tdec.generate(cfg, stacked, prompt, 8),
+                       tdec.generate(cfg, params, prompt, 8))
+    whole = tdec.KVCache.init(cfg, 1, 200, rolling=True)
+    chunked = tdec.KVCache.init(cfg, 1, 200, rolling=True)
+    tokens = torch.randint(0, cfg.vocab, (1, 150), device="cuda",
+                           generator=card)
+    ref, whole = tdec.forward_with_cache(cfg, params, tokens[:, :1], whole)
+    for t in range(1, 150):
+        ref, whole = tdec.forward_with_cache(cfg, params,
+                                             tokens[:, t:t + 1], whole)
+    for a in range(0, 150, 50):
+        out, chunked = tdec.forward_with_cache(cfg, params,
+                                               tokens[:, a:a + 50], chunked)
+    assert float((out[0, -1] - ref[0, -1]).abs().max()) <= TOL_LOGITS_TWINS

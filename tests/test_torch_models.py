@@ -205,6 +205,9 @@ def test_selectors_validate(monkeypatch):
 
 
 def test_rolling_mid_sequence_chunk_is_a_later_slice():
+    """A multi-token chunk on a filled ring was refused until the rolling
+    chunk path was ported; it now runs, and the ring holds the chunk's
+    keys at their slots (position p at p % capacity)."""
     _, tcfg = _configs(attn_window=4)
     jcfg, _ = _configs(attn_window=4)
     _, _, tparams = _params(jcfg, tcfg)
@@ -212,6 +215,145 @@ def test_rolling_mid_sequence_chunk_is_a_later_slice():
     _, cache = tdec.forward_with_cache(tcfg, tparams,
                                        torch.zeros(1, 3).long(), cache,
                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tdec.forward_with_cache(tcfg, tparams, torch.zeros(1, 2).long(),
-                                cache, device="cpu")
+    before = cache.k.clone()
+    logits, cache = tdec.forward_with_cache(tcfg, tparams,
+                                            torch.ones(1, 2).long(), cache,
+                                            device="cpu")
+    assert tuple(logits.shape) == (1, 2, tcfg.vocab) and cache.length == 5
+    # Positions 3 and 4 land in slots 3 and 0; slots 1 and 2 keep 1, 2.
+    assert not torch.equal(cache.k[:, :, :, 3], before[:, :, :, 3])
+    assert not torch.equal(cache.k[:, :, :, 0], before[:, :, :, 0])
+    assert torch.equal(cache.k[:, :, :, 1:3], before[:, :, :, 1:3])
+
+
+@pytest.mark.parametrize("size", [1, 3, 7])
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf", "int8"])
+def test_rolling_chunks_match_jax_and_the_full_forward(size, quantized):
+    """A ring of capacity 5 fed in chunks of ``size`` (7 crosses the
+    ring's end inside one chunk and keeps only its last 5 positions):
+    at every chunk the logits and the ring's contents equal the
+    reference's, and on the float ring the logits equal the full
+    windowed forward at the same positions (the reference's decode
+    contract; an int8 ring carries its quantisation error, which the
+    reference's side carries too)."""
+    jcfg, tcfg = _configs(attn_window=5)
+    model, jparams, tparams = _params(jcfg, tcfg, seed=4)
+    tokens = _tokens(np.random.default_rng(4), jcfg.vocab, 2, 22)
+    full = TransformerLM(tcfg)(tparams, torch.from_numpy(tokens).long())
+    jc = jdec.KVCache.init(jcfg, 2, 22, rolling=True, quantized=quantized)
+    tc = tdec.KVCache.init(tcfg, 2, 22, rolling=True, quantized=quantized,
+                           device="cpu")
+    atol = ATOL_INT8 if quantized else ATOL
+    for start in range(0, 22, size):
+        chunk = tokens[:, start:start + size]
+        jl, jc = jdec.forward_with_cache(jcfg, jparams, jnp.asarray(chunk),
+                                         jc)
+        tl, tc = tdec.forward_with_cache(tcfg, tparams,
+                                         torch.from_numpy(chunk), tc,
+                                         device="cpu")
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=atol,
+                                   rtol=0, err_msg=f"chunk at {start}")
+        if not quantized:
+            np.testing.assert_allclose(
+                tl.numpy(), full[:, start:start + size].detach().numpy(),
+                atol=atol, rtol=0, err_msg=f"full forward at {start}")
+        assert tc.length == int(jc.length)
+        jk, jv = _jcache_np(jc)
+        if quantized:
+            np.testing.assert_allclose(tc.k_scale.numpy(),
+                                       np.asarray(jc.k_scale), atol=1e-6)
+            np.testing.assert_allclose(tc.v_scale.numpy(),
+                                       np.asarray(jc.v_scale), atol=1e-6)
+            # One int8 step where both sides' f32 straddle a boundary.
+            assert np.abs(tc.k.numpy().astype(int) - jk.astype(int)).max() <= 1
+            assert np.mean(tc.k.numpy() != jk) < 1e-2
+        else:
+            np.testing.assert_allclose(tc.k.numpy(), jk, atol=1e-5)
+            np.testing.assert_allclose(tc.v.numpy(), jv, atol=1e-5)
+
+
+def test_write_rolling_chunk_splits_at_the_ring_end():
+    """Position p lands in slot p % capacity, the last ``capacity``
+    positions only, for every offset and length around the wrap."""
+    capacity = 5
+    for pos in range(0, 12):
+        for t in range(1, 13):
+            buf = torch.full((1, 1, capacity, 1), -1.0)
+            chunk = torch.arange(pos, pos + t, dtype=torch.float32)
+            tdec._write_rolling_chunk(buf, chunk.reshape(1, 1, t, 1), pos,
+                                      capacity)
+            want = torch.full((capacity,), -1.0)
+            for p in range(max(pos, pos + t - capacity), pos + t):
+                want[p % capacity] = p
+            assert torch.equal(buf.reshape(-1), want), (pos, t)
+
+
+STACKED_VARIANTS = {"linear": {}, "rolling": {"attn_window": 5},
+                    "int8_cache": {}}
+
+
+@pytest.mark.parametrize("variant", sorted(STACKED_VARIANTS))
+def test_stacked_params_match_per_layer_and_jax(variant):
+    """forward_with_cache on ``stack_decode_params`` gives the per-layer
+    form's numbers exactly (one block code, views of the stacked
+    tensors) and the reference's stacked form's within ATOL, for a
+    prefill, a chunk and single-token steps."""
+    jcfg, tcfg = _configs(**STACKED_VARIANTS[variant])
+    _, jparams, tparams = _params(jcfg, tcfg, seed=5)
+    rolling = variant == "rolling"
+    quantized = variant == "int8_cache"
+    jsp = jdec.stack_decode_params(jcfg, jparams)
+    tsp = tdec.stack_decode_params(tcfg, tparams)
+    assert tuple(tsp.qkv.shape) == tuple(jsp.qkv.shape) == (2, 64, 128)
+    tokens = _tokens(np.random.default_rng(5), jcfg.vocab, 2, 16)
+    kw = dict(rolling=rolling, quantized=quantized)
+    jc = jdec.KVCache.init(jcfg, 2, 16, **kw)
+    layer = tdec.KVCache.init(tcfg, 2, 16, device="cpu", **kw)
+    stacked = tdec.KVCache.init(tcfg, 2, 16, device="cpu", **kw)
+    for a, b in [(0, 8), (8, 11), (11, 12), (12, 13), (13, 14)]:
+        chunk = tokens[:, a:b]
+        jl, jc = jdec.forward_with_cache(jcfg, jsp, jnp.asarray(chunk), jc)
+        ll, layer = tdec.forward_with_cache(tcfg, tparams,
+                                            torch.from_numpy(chunk), layer,
+                                            device="cpu")
+        sl, stacked = tdec.forward_with_cache(tcfg, tsp,
+                                              torch.from_numpy(chunk),
+                                              stacked, device="cpu")
+        assert torch.equal(sl, ll), (a, b)
+        np.testing.assert_allclose(sl.numpy(), np.asarray(jl),
+                                   atol=ATOL_INT8 if quantized else ATOL,
+                                   rtol=0)
+    assert torch.equal(stacked.k, layer.k) and torch.equal(stacked.v,
+                                                           layer.v)
+    assert stacked.length == layer.length == int(jc.length)
+
+
+@pytest.mark.parametrize("window", [None, 6], ids=["causal", "rolling"])
+def test_generate_on_stacked_params_matches_per_layer_and_jax(window):
+    jcfg, tcfg = _configs(attn_window=window)
+    _, jparams, tparams = _params(jcfg, tcfg, seed=6)
+    prompt = _tokens(np.random.default_rng(6), jcfg.vocab, 2, 9)
+    ref = jdec.generate(jcfg, jdec.stack_decode_params(jcfg, jparams),
+                        jnp.asarray(prompt), 8)
+    out = tdec.generate(tcfg, tdec.stack_decode_params(tcfg, tparams),
+                        prompt, 8, device="cpu")
+    per_layer = tdec.generate(tcfg, tparams, prompt, 8, device="cpu")
+    assert out.tolist() == per_layer.tolist() == np.asarray(ref).tolist()
+
+
+def test_stacked_params_refusals():
+    """The reference's refusals: MoE layers, int8 params, and
+    ``quantize_weights`` on stacked params."""
+    _, tcfg = _configs()
+    jcfg, _ = _configs()
+    _, _, tparams = _params(jcfg, tcfg)
+    with pytest.raises(ValueError, match="uniform"):
+        tdec.stack_decode_params(dataclasses.replace(tcfg, moe_experts=2),
+                                 tparams)
+    with pytest.raises(ValueError, match="unrolled path"):
+        tdec.stack_decode_params(tcfg,
+                                 tdec.quantize_decode_params(tcfg, tparams))
+    sp = tdec.stack_decode_params(tcfg, tparams)
+    with pytest.raises(ValueError, match="raw training"):
+        tdec.generate(tcfg, sp, [[1, 2]], 2, quantize_weights=True,
+                      device="cpu")
