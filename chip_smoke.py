@@ -15,8 +15,9 @@ Phases (a failed phase raises; nothing is caught):
    QKV+RoPE also at the train config's MHA shapes (8 kv heads), and,
    for the flash forward with lse and the two backward kernels, at the
    training shape (batch 4, 8 heads,
-   S=2048, head dim 128) and four more masks (SDPA's forward and backward
-   as the library calls), element by element within the stated tolerance
+   S=2048, head dim 128), four more masks and the long phase's shape
+   (batch 1, 8 heads, S=8192; SDPA's forward and backward as the library
+   calls), element by element within the stated tolerance
    (see ``check_close``); the GEMV's int8 cases launch as the model
    does (scale in the kernel with a residual, after it without); two
    launches of the GEMV must give equal bits (tied head in bf16 and
@@ -90,6 +91,30 @@ Phases (a failed phase raises; nothing is caught):
    gateway's start, so over the two requests at the MHA shapes) show
    every serving kernel launched. Printed: ready and restore seconds,
    TTFT, swap seconds, the pod's launches.
+
+9. long: ``bench.py``'s long mode (``KFT_BENCH_MODE=long``) on the
+   train config at batch 1. Step 0 at S=8192 twice from one seeded
+   state and batch, with ``loss_impl="auto"`` (the fused vocab-tiled
+   loss) and ``"dense"``: the losses within 1e-3 relative, every leaf's
+   gradient (read from the optimizer) within TRAIN_GRAD_TOL in relative
+   norm, and the fused step's ``max_memory_allocated`` below the dense
+   step's. Then, from the fused state, 4 steps at S=8192, 2 at S=32768
+   and 2 at S=8192 with a 1024-token window: finite losses and 8
+   launches of each flash kernel a step (counters zeroed before each
+   run). Printed: step ms, tokens/s and peak memory of each, and one
+   more step of each under ``torch.profiler``.
+10. resnet: ``bench.py``'s primary section: ResNet-50 at batch 256,
+   224x224 bf16 images, 1000 classes, label smoothing 0.1,
+   ``make_optimizer()``, seed 0. First a resnet18 (width 8, f32, 32x32)
+   on the card against the same model on the CPU, forward and one step,
+   with TF32 off (cuDNN allows TF32 for f32 convolutions by default).
+   Then the bf16 step-0 loss against the f32 model's on the same
+   parameters and batch (TF32 off), 10 steps on one batch (finite and
+   falling losses, ``batch_stats`` moved), an eval step, and a checkpoint
+   saved and restored leaf by leaf equal (``batch_stats`` and the SGD
+   trace included). Printed: images/s, step ms, MFU
+   (3 x forward FLOPs x images/s over 989 TFLOP/s), peak memory, and one
+   step under ``torch.profiler``.
 
 Output: one JSON line per phase, the ``{"kernels": [...]}`` summary,
 the card's name and power limit, and last
@@ -486,6 +511,8 @@ TRAIN_ATTN_CASES = [
     ("window", 1, 8, 8, 2048, 256, False),
     ("segments", 2, 8, 8, 2048, None, True),
     ("ragged", 1, 8, 8, 1000, None, False),
+    # The long phase's shape (bench.py's long mode): B=1, MHA, S=8192.
+    ("long", 1, 8, 8, 8192, None, False),
 ]
 
 
@@ -1747,6 +1774,383 @@ def pod_ckpt_check(torch, directory) -> dict:
             "prompt": POD_PROMPT, "new_tokens": POD_NEW_TOKENS}
 
 
+# ----------------------------------------------------------------- long
+
+# long phase: bench.py's long mode (bench.py:749-840) on the train config
+# at batch 1: (name, sequence, window, steps).
+LONG_BATCH = 1
+LONG_SEQ = 8192
+LONG_RUNS = (("s8192", 8192, None, 4), ("s32768", 32768, None, 2),
+             ("window1024", 8192, 1024, 2))
+# Step 0 at S=8192, fused loss against dense loss: the losses, relative.
+# Both take the same f32-accumulated logits of the same bf16 hidden
+# states; they differ in the order of the logsumexp's sums.
+LONG_LOSS_RTOL = 1e-3
+
+
+class RecordingAdamW:
+    """The train config's AdamW, keeping a host copy of the gradients it
+    is given: what a step computed, read after the step."""
+
+    def __init__(self, torch):
+        from kubeflow_tpu_torch.models import AdamW
+
+        self.inner = AdamW(3e-4, weight_decay=0.01, mu_dtype=torch.bfloat16)
+        self.grads = None
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = [g.detach().float().cpu() for g in grads]
+        self.inner.update(grads, state, params)
+
+
+def long_step0(torch, cfg, tokens) -> tuple:
+    """Step 0 at S=8192 with the dense loss, then with ``"auto"`` (fused),
+    each from a fresh seed-0 state with nothing else of the phase on the
+    card. Returns the fused state and the comparison."""
+    from kubeflow_tpu_torch.models import (
+        build_lm,
+        create_lm_state,
+        make_lm_train_step,
+    )
+    from kubeflow_tpu_torch.models.optim import flatten
+
+    out = {}
+    for impl in ("dense", "auto"):
+        tx = RecordingAdamW(torch)
+        state = create_lm_state(build_lm(cfg), seed=0, tx=tx)
+        step = make_lm_train_step(cfg=dataclasses.replace(cfg,
+                                                          loss_impl=impl))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": tokens})
+        loss = float(metrics["loss"])   # syncs the step
+        ms = (time.perf_counter() - t0) * 1e3
+        out[impl] = {"loss": loss, "ms": ms, "grads": tx.grads,
+                     "peak": torch.cuda.max_memory_allocated()}
+        if impl == "dense":
+            del state, step, metrics
+            torch.cuda.empty_cache()
+    paths = [path for path, _ in flatten(state.params)]
+    rel = {path: float((f - d).norm() / d.norm()) for path, f, d in zip(
+        paths, out["auto"]["grads"], out["dense"]["grads"])}
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    fused, dense = out["auto"], out["dense"]
+    loss_rel = abs(fused["loss"] - dense["loss"]) / abs(dense["loss"])
+    if not loss_rel <= LONG_LOSS_RTOL:
+        _fail(f"S={LONG_SEQ} step-0 loss: fused {fused['loss']} vs dense "
+              f"{dense['loss']} ({loss_rel} relative, limit "
+              f"{LONG_LOSS_RTOL})")
+    if not worst[1] <= TRAIN_GRAD_TOL:
+        _fail(f"S={LONG_SEQ} step-0 gradient of {worst[0]}: fused vs dense "
+              f"{worst[1]} in relative norm (limit {TRAIN_GRAD_TOL})")
+    if not fused["peak"] < dense["peak"]:
+        _fail(f"the fused-loss step peaked at {fused['peak']} bytes, not "
+              f"below the dense-loss step's {dense['peak']}")
+    state.tx = state.tx.inner
+    return state, {
+        "loss": {"fused": fused["loss"], "dense": dense["loss"]},
+        "loss_rel_err": loss_rel, "grad_rel_err_max": worst[1],
+        "grad_rel_err_worst_leaf": worst[0], "grad_tol": TRAIN_GRAD_TOL,
+        "step_ms": {"fused": fused["ms"], "dense": dense["ms"]},
+        "max_memory_allocated": {"fused": fused["peak"],
+                                 "dense": dense["peak"]}}
+
+
+def long_phase(torch):
+    """Step 0 fused vs dense, then LONG_RUNS from the fused state, the
+    launch counters zeroed just before each run and read just after, and
+    one more step of each run under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.models import build_lm, make_lm_train_step
+    from kubeflow_tpu_torch.ops import _build
+
+    cfg = train_config(torch)
+    gen = torch.Generator(device="cuda").manual_seed(2026)
+    tokens = torch.randint(0, cfg.vocab, (LONG_BATCH, LONG_SEQ),
+                           device="cuda", generator=gen)
+    state, step0 = long_step0(torch, cfg, tokens)
+    runs, total = {}, {name: 0 for name in _build.LAUNCHES}
+    for name, seq, window, steps in LONG_RUNS:
+        run_cfg = dataclasses.replace(cfg, attn_window=window)
+        state.apply_fn = build_lm(run_cfg)
+        step = make_lm_train_step(cfg=run_cfg)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (LONG_BATCH, seq),
+                                         device="cuda", generator=gen)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        losses, step_ms = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))   # syncs the step
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_build.LAUNCHES)
+        if not all(math.isfinite(x) for x in losses):
+            _fail(f"long[{name}]: non-finite losses {losses}")
+        for kernel in TRAIN_KERNELS:
+            if launches[kernel] != steps * cfg.layers:
+                _fail(f"long[{name}]: {kernel} launched {launches[kernel]} "
+                      f"times in {steps} steps, not {cfg.layers} per step")
+        for kernel, count in launches.items():
+            total[kernel] += count
+        peak = torch.cuda.max_memory_allocated()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            float(metrics["loss"])
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        steady = statistics.median(step_ms[1:])
+        runs[name] = {
+            "seq": seq, "window": window, "steps": steps, "losses": losses,
+            "step_ms": step_ms, "step_ms_steady": steady,
+            "tokens_per_s": LONG_BATCH * seq / steady * 1e3,
+            "max_memory_allocated": peak, "launches": launches,
+            "traced_step": {"step_ms": traced_ms, **device_breakdown(prof)}}
+    return {"phase": "long", "batch": LONG_BATCH, "step0": step0,
+            "runs": runs, "launches": total}
+
+
+# --------------------------------------------------------------- resnet
+
+# resnet phase: bench.py's primary section (bench.py:610-680).
+RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES = 256, 224, 1000
+RESNET_SMOOTHING, RESNET_STEPS = 0.1, 10
+# The bf16 step-0 loss against the same parameters and batch through the
+# f32 model (TF32 off), relative. The loss at init is ~ln(1000) = 6.9;
+# bf16 activations through 53 convolutions and norms move the logits by
+# a few bf16 ulps, the loss (a logsumexp over 1000 near-equal logits)
+# far less.
+RESNET_STEP0_RTOL = 1e-2
+# resnet18 (width 8, f32, 32x32) on the card against the CPU, TF32 off:
+# the same f32 arithmetic in another summation order (the CPU tests
+# hold the port to the JAX package at this limit).
+RESNET_CPU_TOL = 1e-4
+
+
+class no_tf32:
+    """TF32 off for cuDNN convolutions and cuBLAS matmuls inside, the
+    previous settings restored after."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        b = self.torch.backends
+        self.saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
+        b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        b = self.torch.backends
+        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = self.saved
+
+
+def leaf_errors(got, want) -> tuple:
+    """Worst leaf of two states' leaves (keystr -> tensor): relative norm
+    with the leaf's norm floored at 2^-8 x its group's RMS x sqrt(size),
+    as ``tests/test_torch_resnet.py`` holds the port to the JAX package
+    (a leaf whose gradient cancels, a last-stage BatchNorm over 8 values,
+    is held at its group's scale)."""
+    worst = (0.0, None)
+    for group in ("['params']", "['batch_stats']", "['opt_state']"):
+        keys = [k for k in want if k.startswith(group)]
+        sq = sum(float(want[k].double().pow(2).sum()) for k in keys)
+        rms = math.sqrt(sq / sum(want[k].numel() for k in keys))
+        for k in keys:
+            floor = ROW_RMS_FLOOR * rms * math.sqrt(want[k].numel())
+            err = float((got[k].double() - want[k].double()).norm()) / max(
+                float(want[k].double().norm()), floor)
+            worst = max(worst, (err, k), key=lambda t: t[0])
+    return worst
+
+
+def resnet_cpu_check(torch) -> dict:
+    """resnet18 (width 8, f32, 32x32) on the card and on the CPU from one
+    seeded state, the zero-initialised scales moved: train-mode logits and
+    statistics, eval logits, then one step (loss, every leaf of params,
+    batch_stats and the trace), TF32 off."""
+    from kubeflow_tpu_torch.models import (
+        create_train_state,
+        make_train_step,
+        resnet18,
+    )
+
+    model = resnet18(num_classes=10, width=8, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(7)
+    images = torch.randn((16, 32, 32, 3), generator=gen)
+    labels = torch.randint(0, 10, (16,), generator=gen)
+    states = {}
+    for dev in ("cpu", "cuda"):
+        states[dev] = create_train_state(model, seed=3,
+                                         input_shape=(16, 32, 32, 3),
+                                         device=dev)
+    card_leaves = state_leaves(states["cuda"])
+    with torch.no_grad():   # every BatchNorm scale, the zero ones included
+        for key, cpu in state_leaves(states["cpu"]).items():
+            if key.startswith("['params']") and key.endswith("['scale']"):
+                cpu.add_(torch.randn(cpu.shape, generator=gen) * 0.2)
+                card_leaves[key].copy_(cpu)
+    out = {}
+    with no_tf32(torch):
+        for name, train in (("train_logits", True), ("eval_logits", False)):
+            res = {dev: model(s.params, s.batch_stats,
+                              images.to(dev), train=train)
+                   for dev, s in states.items()}
+            if train:
+                res = {dev: r[0] for dev, r in res.items()}
+            want = res["cpu"].detach()
+            err = float((res["cuda"].detach().cpu() - want).abs().max()
+                        / want.abs().max())
+            if not err <= RESNET_CPU_TOL:
+                _fail(f"resnet18 {name} on the card vs the CPU: {err} of "
+                      f"the largest logit (limit {RESNET_CPU_TOL})")
+            out[name] = err
+        step = make_train_step()
+        losses = {}
+        for dev, s in states.items():
+            _, metrics = step(s, {"image": images.to(dev),
+                                  "label": labels.to(dev)})
+            losses[dev] = float(metrics["loss"])
+    loss_err = abs(losses["cuda"] - losses["cpu"])
+    if not loss_err <= RESNET_CPU_TOL:
+        _fail(f"resnet18 step loss on the card {losses['cuda']} vs the CPU "
+              f"{losses['cpu']}")
+    card = {k: v.detach().cpu() for k, v in
+            state_leaves(states["cuda"]).items()
+            if isinstance(v, torch.Tensor)}
+    cpu = {k: v.detach() for k, v in state_leaves(states["cpu"]).items()
+           if isinstance(v, torch.Tensor)}
+    err, key = leaf_errors(card, cpu)
+    if not err <= RESNET_CPU_TOL:
+        _fail(f"resnet18 state after one step on the card vs the CPU: leaf "
+              f"{key} at {err} (limit {RESNET_CPU_TOL})")
+    return {**out, "step_loss": losses, "step_loss_abs_err": loss_err,
+            "state_rel_err_max": err, "state_worst_leaf": key,
+            "tol": RESNET_CPU_TOL}
+
+
+def resnet_phase(torch, root) -> dict:
+    """The CPU check, then ResNet-50 at bench.py's shape: the step-0 loss
+    against the f32 model, RESNET_STEPS steps on one batch, an eval
+    step, a traced step, and a checkpoint round trip under ``root``."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.models import (
+        create_train_state,
+        cross_entropy,
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+        resnet50,
+        resnet_flops_per_image,
+    )
+    from kubeflow_tpu_torch.models.checkpoint import CheckpointManager
+    from kubeflow_tpu_torch.models.transformer import param_count
+
+    tf32_default = {"cudnn": torch.backends.cudnn.allow_tf32,
+                    "matmul": torch.backends.cuda.matmul.allow_tf32}
+    cpu_check = resnet_cpu_check(torch)
+    shape = (RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3)
+    model = resnet50(num_classes=RESNET_CLASSES)
+    state = create_train_state(model, seed=0, input_shape=shape,
+                               tx=make_optimizer())
+    gen = torch.Generator(device="cuda").manual_seed(2027)
+    batch = {"image": torch.randn(shape, generator=gen,
+                                  device="cuda").to(torch.bfloat16),
+             "label": torch.randint(0, RESNET_CLASSES, (RESNET_BATCH,),
+                                    generator=gen, device="cuda")}
+    model32 = resnet50(num_classes=RESNET_CLASSES, dtype=torch.float32)
+    with no_tf32(torch), torch.no_grad():
+        logits, _ = model32(state.params, state.batch_stats, batch["image"],
+                            train=True)
+        loss32 = float(cross_entropy(logits, batch["label"],
+                                     RESNET_SMOOTHING))
+        del logits
+    stats0 = {k: v.clone() for k, v in
+              state_leaves(state).items() if "batch_stats" in k}
+    step = make_train_step(smoothing=RESNET_SMOOTHING)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))   # syncs the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    step0_rel = abs(losses[0] - loss32) / abs(loss32)
+    if not step0_rel <= RESNET_STEP0_RTOL:
+        _fail(f"resnet50 bf16 step-0 loss {losses[0]} vs f32 {loss32}: "
+              f"{step0_rel} relative (limit {RESNET_STEP0_RTOL})")
+    if not all(math.isfinite(x) for x in losses):
+        _fail(f"resnet50: non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        _fail(f"resnet50: the loss did not fall on a fixed batch: {losses}")
+    now = state_leaves(state)
+    moved = sum(not torch.equal(now[k], v) for k, v in stats0.items())
+    if moved != len(stats0):
+        _fail(f"resnet50: {len(stats0) - moved} of {len(stats0)} "
+              "batch_stats leaves did not move in training")
+    evaluation = make_eval_step()(state, batch)
+    eval_loss = float(evaluation["loss"])
+    if not math.isfinite(eval_loss):
+        _fail(f"resnet50 eval loss {eval_loss}")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+        traced_ms = (time.perf_counter() - t0) * 1e3
+
+    directory = os.path.join(root, "resnet50")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    CheckpointManager(directory).save(state.step, state)
+    save_s = time.perf_counter() - t0
+    like = create_train_state(model, seed=1, input_shape=shape)
+    t0 = time.perf_counter()
+    restored = CheckpointManager(directory).restore_latest_valid(like)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if restored is None or not states_equal(torch, restored[0], state):
+        _fail("resnet50: the checkpoint did not restore leaf by leaf equal")
+    n_leaves = {g: sum(g in k for k in state_leaves(state))
+                for g in ("['params']", "['batch_stats']", ".trace[")}
+    del restored, like
+
+    steady = statistics.median(step_ms[1:])
+    images_per_s = RESNET_BATCH / steady * 1e3
+    flops = resnet_flops_per_image("resnet50", RESNET_IMAGE)
+    return {
+        "phase": "resnet", "model": "resnet50",
+        "params": param_count(state.params), "batch": RESNET_BATCH,
+        "image": RESNET_IMAGE, "classes": RESNET_CLASSES,
+        "smoothing": RESNET_SMOOTHING, "tf32_default": tf32_default,
+        "cpu_check": cpu_check,
+        "step0": {"loss_bf16": losses[0], "loss_f32": loss32,
+                  "rel_err": step0_rel, "tol": RESNET_STEP0_RTOL,
+                  "f32_tf32": False},
+        "losses": losses, "step_ms": step_ms, "step_ms_median": steady,
+        "images_per_s": images_per_s,
+        "mfu": 3 * flops * images_per_s / BF16_FLOPS_PER_S,
+        "max_memory_allocated": peak,
+        "eval": {"loss": eval_loss,
+                 "accuracy": float(evaluation["accuracy"])},
+        "batch_stats_leaves_moved": moved,
+        "checkpoint": {"save_s": save_s, "restore_s": restore_s,
+                       "leaves": n_leaves, "restored_equal": True},
+        "traced_step": {"step_ms": traced_ms, **device_breakdown(prof)},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1804,6 +2208,16 @@ def main() -> int:
         print(json.dumps(pod), flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    long = long_phase(torch)
+    print(json.dumps(long), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="resnet_smoke_", dir=_build.BUILD_DIR)
+    try:
+        print(json.dumps(resnet_phase(torch, root)), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     main_case = {"gemv": "tied_head", "qkv_rope": "flagship",
                  "decode_attention": "serve_shape",
                  "flash_attention": "causal", "flash_dq": "train_causal",
@@ -1815,7 +2229,8 @@ def main() -> int:
     # phase's engine run's (int8 weights: every gemv and qkv_rope launch
     # there takes an int8 weight); ``ckpt_launches`` the ckpt phase's
     # three runs'; ``pod_ckpt_launches`` the checkpoint-restored pod's
-    # own, counted in its process over its two requests.
+    # own, counted in its process over its two requests;
+    # ``long_launches`` the long phase's three runs'.
     launches = {**serve["launches"], "flash_dq": train["launches"]["flash_dq"],
                 "flash_dkv": train["launches"]["flash_dkv"]}
     meta = {
@@ -1846,7 +2261,8 @@ def main() -> int:
             "int8_launches": int8["launches"][name],
             "train_launches": train["launches"][name],
             "ckpt_launches": ckpt["launches"][name],
-            "pod_ckpt_launches": pod["launches"][name]})
+            "pod_ckpt_launches": pod["launches"][name],
+            "long_launches": long["launches"][name]})
     print(json.dumps({"kernels": summary}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

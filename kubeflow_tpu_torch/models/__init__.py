@@ -1,14 +1,18 @@
-"""The LM of the PyTorch port: config, forward, loss and train step
-(``transformer``), AdamW with a bf16 first moment (``optim``), the train
-state and loops, the checkpointed one included (``train``), the
-checkpoint store in the reference's on-disk format (``checkpoint``), the
-flax weight and train-state converter (``convert``), KV-cache decode
-with stacked params and rolling chunks (``decoding``) and the continuous
-batcher (``serving``). ResNet, the fused cross-entropy, pipelining and
-speculative decoding belong to later slices."""
+"""The models of the PyTorch port: the LM's config, forward, losses
+(dense, and the vocab-tiled fused loss from ``ops/cross_entropy``) and
+train step (``transformer``); ResNet-18/50 (``resnet``); AdamW with a
+bf16 first moment and ``make_optimizer``'s Nesterov SGD (``optim``); the
+train state, ResNet's train and eval steps and the loops, the
+checkpointed one included (``train``); the checkpoint store in the
+reference's on-disk format (``checkpoint``); the flax weight and
+train-state converter (``convert``); KV-cache decode with stacked params
+and rolling chunks (``decoding``) and the continuous batcher
+(``serving``). MoE, pipelining and speculative decoding belong to later
+slices."""
 
 from kubeflow_tpu_torch.models.convert import (
     params_from_jax,
+    resnet_variables_from_jax,
     train_state_from_jax,
 )
 from kubeflow_tpu_torch.models.decoding import (
@@ -20,11 +24,26 @@ from kubeflow_tpu_torch.models.decoding import (
     quantize_decode_params,
     stack_decode_params,
 )
-from kubeflow_tpu_torch.models.optim import AdamW, AdamWState
+from kubeflow_tpu_torch.models.optim import (
+    AdamW,
+    AdamWState,
+    NesterovSGD,
+    make_optimizer,
+)
+from kubeflow_tpu_torch.models.resnet import (
+    ResNet,
+    resnet18,
+    resnet50,
+    resnet_flops_per_image,
+)
 from kubeflow_tpu_torch.models.serving import BatchState, ContinuousBatcher
 from kubeflow_tpu_torch.models.train import (
     RunReport,
     TrainState,
+    create_train_state,
+    cross_entropy,
+    make_eval_step,
+    make_train_step,
     realign_batches,
     run_steps,
     run_with_checkpointing,
@@ -54,7 +73,18 @@ __all__ = [
     "run_with_checkpointing",
     "AdamW",
     "AdamWState",
+    "NesterovSGD",
+    "make_optimizer",
+    "ResNet",
+    "resnet18",
+    "resnet50",
+    "resnet_flops_per_image",
+    "create_train_state",
+    "cross_entropy",
+    "make_train_step",
+    "make_eval_step",
     "params_from_jax",
+    "resnet_variables_from_jax",
     "train_state_from_jax",
     "Int8Linear",
     "KVCache",

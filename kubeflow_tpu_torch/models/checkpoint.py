@@ -23,11 +23,14 @@ rank restores the step it broadcasts.
 Where the port differs from the reference, and why:
 
 - Leaves are keyed by the reference's ``keystr`` paths, in its flatten
-  order (dict keys sorted). The port's :class:`TrainState` has no
-  ``batch_stats`` and holds ``step`` and the optimizer's ``count`` as
-  Python ints; they are written as int32 0-d leaves under
-  ``['step']`` and ``['opt_state'][0].count``, as optax's state puts
-  them, with mu and nu under ``['opt_state'][0].mu[...]``/``.nu[...]``.
+  order (dict keys sorted). The port's :class:`TrainState` holds
+  ``step`` and AdamW's ``count`` as Python ints; they are written as
+  int32 0-d leaves under ``['step']`` and ``['opt_state'][0].count``,
+  as optax's state puts them, with mu and nu under
+  ``['opt_state'][0].mu[...]``/``.nu[...]``. The SGD state of
+  ``make_optimizer`` keeps optax's own tree, so its trace lands under
+  ``['opt_state'][1][0].trace[...]``; ``batch_stats`` is the state's
+  own (empty for the LM).
 - bfloat16 needs no ``ml_dtypes``: its payload is the tensor's raw
   2-byte words, read back as int16 and viewed as ``torch.bfloat16``.
   A restore casts each leaf to the template's dtype in torch (f32 →
@@ -293,16 +296,17 @@ def _normalize_index(index, shape) -> list[list[int]]:
 def _arrays_only(state):
     """TrainState -> the reference's array fields, keyed as its
     TrainState flattens: ``step`` and the AdamW ``count`` as int32 0-d,
-    an empty ``batch_stats``, the AdamW state as the first entry of the
-    optimizer chain. Static fields (tx, apply_fn) restore from the
-    template. Any other tree is returned as it is."""
+    the state's ``batch_stats``, the AdamW state as the first entry of
+    the optimizer chain (any other optimizer state, the SGD chain's,
+    already is optax's tree). Static fields (tx, apply_fn) restore from
+    the template. Any other tree is returned as it is."""
     if not isinstance(state, TrainState):
         return state
     opt = state.opt_state
     if isinstance(opt, AdamWState):
         opt = (dataclasses.replace(opt, count=np.int32(int(opt.count))),)
     return {"step": np.int32(int(state.step)), "params": state.params,
-            "batch_stats": {}, "opt_state": opt}
+            "batch_stats": state.batch_stats, "opt_state": opt}
 
 
 def _merge_static(like, restored):
@@ -312,7 +316,9 @@ def _merge_static(like, restored):
     if isinstance(like.opt_state, AdamWState):
         opt = dataclasses.replace(opt[0], count=int(opt[0].count))
     return dataclasses.replace(like, step=int(restored["step"]),
-                               params=restored["params"], opt_state=opt)
+                               params=restored["params"],
+                               batch_stats=restored["batch_stats"],
+                               opt_state=opt)
 
 
 def _is_node(tree) -> bool:

@@ -1,6 +1,8 @@
-"""AdamW with a low-precision first moment, as plain functions on tensors.
+"""The port's optimizers, as plain functions on tensors: AdamW with a
+low-precision first moment (the LM's) and Nesterov SGD with masked
+weight decay (ResNet's, :func:`make_optimizer`).
 
-The counterpart of ``optax.adamw(lr, b1=0.9, b2=0.999, eps=1e-8,
+AdamW is the counterpart of ``optax.adamw(lr, b1=0.9, b2=0.999, eps=1e-8,
 weight_decay, mu_dtype=bfloat16)``, the reference LM's optimizer
 (``kubeflow_tpu/models/transformer.py`` ``create_lm_state``).
 ``torch.optim.AdamW`` keeps its moments in the parameters' dtype, so the
@@ -47,6 +49,14 @@ def flatten(tree: dict[str, Any], prefix: str = "") -> list[tuple[str, Any]]:
 def tree_map(fn, tree: dict[str, Any]) -> dict[str, Any]:
     return {key: tree_map(fn, value) if isinstance(value, dict) else fn(value)
             for key, value in tree.items()}
+
+
+def trainable(params: dict[str, Any]) -> dict[str, Any]:
+    """The same nested dict with every leaf a tensor that requires grad
+    (the leaves themselves, flagged in place)."""
+    return {key: trainable(value) if isinstance(value, dict)
+            else value.requires_grad_(True)
+            for key, value in params.items()}
 
 
 @dataclasses.dataclass
@@ -111,3 +121,71 @@ class AdamW:
             p.add_(-self.lr * u)
             mu.copy_(mu32)
         state.count = count
+
+
+# ---------------------------------------------------------------------------
+# Nesterov SGD with masked weight decay (the ResNet optimizer)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class EmptyState:
+    """optax's ``EmptyState``: a transformation without state."""
+
+
+@dataclasses.dataclass
+class MaskedState:
+    """optax's ``MaskedState``: the state of the masked inner
+    transformation."""
+
+    inner_state: Any
+
+
+@dataclasses.dataclass
+class TraceState:
+    """optax's ``TraceState``: the momentum trace, shaped like the
+    parameters."""
+
+    trace: dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class NesterovSGD:
+    """The reference's ``make_optimizer``: ``optax.chain(
+    add_decayed_weights(weight_decay, mask=ndim > 1), sgd(lr, momentum,
+    nesterov=True))``. Its state keeps optax's tree, ``(MaskedState(
+    EmptyState()), (TraceState(trace), EmptyState()))``, so the
+    checkpoint writes it under the reference's keys."""
+
+    lr: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+
+    def init(self, params: dict[str, Any]) -> tuple:
+        trace = tree_map(
+            lambda p: torch.zeros_like(p, requires_grad=False), params)
+        return (MaskedState(EmptyState()), (TraceState(trace), EmptyState()))
+
+    def update(self, grads, state: tuple, params: dict[str, Any]) -> None:
+        """One step, in place on ``params`` and the trace, in optax's
+        order: ``u = g + wd * p`` (leaves of ndim > 1 only), ``t = u +
+        momentum * t``, ``u = u + momentum * t``, ``p = p + (-lr) * u``.
+        ``grads`` is a sequence in ``flatten(params)`` order."""
+        flat_p = flatten(params)
+        flat_t = flatten(state[1][0].trace)
+        if (len(grads) != len(flat_p)
+                or [path for path, _ in flat_t] != [p for p, _ in flat_p]):
+            raise ValueError("grads and optimizer state must match the "
+                             "parameter tree")
+        for (_, p), g, (_, t) in zip(flat_p, grads, flat_t):
+            u = g + self.weight_decay * p if p.ndim > 1 else g
+            t.copy_(u + self.momentum * t)
+            u = u + self.momentum * t
+            p.add_(-self.lr * u)
+
+
+def make_optimizer(lr: float = 0.1, momentum: float = 0.9,
+                   weight_decay: float = 1e-4) -> NesterovSGD:
+    """SGD with Nesterov momentum and decoupled weight decay on the
+    parameters of ndim > 1 (no decay on BatchNorm scales and biases)."""
+    return NesterovSGD(lr, momentum, weight_decay)

@@ -1,14 +1,17 @@
-"""Training state and loops of the port.
+"""Training state, the image train and eval steps, and the loops.
 
-The counterpart of ``kubeflow_tpu/models/train.py`` as far as the LM
-needs it: :class:`TrainState`, :func:`run_steps` and the checkpointed
-loop :func:`run_with_checkpointing` with :class:`RunReport` and
+The counterpart of ``kubeflow_tpu/models/train.py``: :class:`TrainState`,
+the image model's :func:`cross_entropy` (label smoothing),
+:func:`create_train_state`, :func:`make_train_step` and
+:func:`make_eval_step` (ResNet, with ``make_optimizer``'s Nesterov SGD
+from ``models/optim``), :func:`run_steps` and the checkpointed loop
+:func:`run_with_checkpointing` with :class:`RunReport` and
 :func:`realign_batches`. The reference's step is a jitted pure function
 that donates its state; the port's step updates the state's tensors in
 place and returns the same object, so a background save snapshots the
 state to host memory before the next step runs (``models/checkpoint``).
-ResNet training, meshes, step telemetry, goodput and the autopilot's
-cadence signal belong to later slices and raise here.
+Meshes, step telemetry, goodput and the autopilot's cadence signal
+belong to later slices and raise here.
 """
 
 from __future__ import annotations
@@ -21,6 +24,12 @@ import threading
 import time
 from typing import Any, Callable
 
+import torch
+import torch.nn.functional as F
+
+from kubeflow_tpu_torch._device import resolve_device
+from kubeflow_tpu_torch.models.optim import flatten, make_optimizer, trainable
+
 log = logging.getLogger(__name__)
 
 
@@ -28,14 +37,89 @@ log = logging.getLogger(__name__)
 class TrainState:
     """``step`` (a host int), ``params`` (a nested dict of tensors that
     require grad), ``opt_state`` (the optimizer's state), ``tx`` (the
-    optimizer, with ``init``/``update``) and ``apply_fn`` (the model:
-    ``apply_fn(params, tokens, segment_ids)``)."""
+    optimizer, with ``init``/``update``), ``apply_fn`` (the model: the
+    LM's ``apply_fn(params, tokens, segment_ids)``, ResNet's
+    ``apply_fn(params, batch_stats, images, train)``) and
+    ``batch_stats`` (BatchNorm running averages; empty for the LM)."""
 
     step: int
     params: dict[str, Any]
     opt_state: Any
     tx: Any
     apply_fn: Callable
+    batch_stats: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded image training belongs to the parallel/ slice of the "
+            "port (ROADMAP A10)")
+
+
+def cross_entropy(logits, labels, smoothing: float = 0.1):
+    """Mean softmax cross entropy against one-hot labels smoothed to
+    ``onehot * (1 - smoothing) + smoothing / classes``, in f32."""
+    return F.cross_entropy(logits.float(), labels.long(),
+                           label_smoothing=smoothing)
+
+
+def _accuracy(logits, labels):
+    return (logits.argmax(dim=-1) == labels.long()).float().mean()
+
+
+def create_train_state(model, seed: int, input_shape: tuple[int, ...],
+                       tx=None, mesh=None, device=None) -> TrainState:
+    """The image model's TrainState: f32 parameters that require grad and
+    the running statistics from ``model.init_variables(seed)`` for
+    images of ``input_shape`` (N, H, W, C), on the card unless
+    ``device="cpu"``, and ``make_optimizer()`` by default."""
+    _refuse_mesh(mesh)
+    tx = tx or make_optimizer()
+    variables = model.init_variables(seed, in_channels=input_shape[-1],
+                                     device=resolve_device(device))
+    params = trainable(variables["params"])
+    return TrainState(step=0, params=params, opt_state=tx.init(params),
+                      tx=tx, apply_fn=model,
+                      batch_stats=variables["batch_stats"])
+
+
+def make_train_step(mesh=None, smoothing: float = 0.1):
+    """The image step: ``step(state, batch)`` with batch = {"image": (N,
+    H, W, C), "label": (N,) int} computes the smoothed loss and its
+    gradients in train mode (batch statistics), applies the optimizer IN
+    PLACE, takes the new running averages as ``state.batch_stats``, and
+    returns ``(state, {"loss", "accuracy"})`` (0-d tensors)."""
+    _refuse_mesh(mesh)
+
+    def step(state, batch):
+        leaves = [t for _, t in flatten(state.params)]
+        logits, new_stats = state.apply_fn(state.params, state.batch_stats,
+                                           batch["image"], train=True)
+        loss = cross_entropy(logits, batch["label"], smoothing)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            state.tx.update(grads, state.opt_state, state.params)
+            accuracy = _accuracy(logits, batch["label"])
+        state.batch_stats = new_stats
+        state.step += 1
+        return state, {"loss": loss.detach(), "accuracy": accuracy}
+
+    return step
+
+
+def make_eval_step():
+    """``eval_step(state, batch) -> {"loss", "accuracy"}``: eval mode
+    (running averages), no smoothing, no gradient."""
+
+    @torch.no_grad()
+    def eval_step(state, batch):
+        logits = state.apply_fn(state.params, state.batch_stats,
+                                batch["image"], train=False)
+        return {"loss": cross_entropy(logits, batch["label"], 0.0),
+                "accuracy": _accuracy(logits, batch["label"])}
+
+    return eval_step
 
 
 def run_steps(step, state, batches, telemetry=None):

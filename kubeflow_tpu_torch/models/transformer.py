@@ -2,7 +2,7 @@
 the loss and the LM train step.
 
 The counterpart of ``kubeflow_tpu/models/transformer.py``, dense FFN
-only (MoE and the fused cross-entropy belong to later slices).
+only (MoE belongs to a later slice).
 Parameters follow the flax names and the flax ``(in, out)`` kernel
 layout, so the decode path (models/decoding.py) multiplies them as the
 reference does: ``embed/embedding`` (vocab, dim), ``block_<i>/{q_proj,
@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch._device import resolve_device
-from kubeflow_tpu_torch.models.optim import AdamW, flatten
+from kubeflow_tpu_torch.models.optim import AdamW, flatten, trainable
 from kubeflow_tpu_torch.models.train import TrainState
 from kubeflow_tpu_torch.ops.attention import (
     _attend,
@@ -33,6 +33,7 @@ from kubeflow_tpu_torch.ops.attention import (
     check_segment_ids,
     mha_reference,
 )
+from kubeflow_tpu_torch.ops.cross_entropy import fused_lm_loss
 
 AttnImpl = Callable[..., torch.Tensor]  # (q, k, v, causal=, segment_ids=)
 
@@ -274,14 +275,6 @@ def lm_loss(logits, tokens, segment_ids=None):
     return (ce * valid).sum() / valid.sum().clamp_min(1.0)
 
 
-def trainable(params: dict[str, Any]) -> dict[str, Any]:
-    """The same nested dict with every leaf a tensor that requires grad
-    (the leaves themselves, flagged in place)."""
-    return {key: trainable(value) if isinstance(value, dict)
-            else value.requires_grad_(True)
-            for key, value in params.items()}
-
-
 def create_lm_state(model: TransformerLM, seed: int = 0, tx=None,
                     device=None):
     """TrainState for the LM: f32 parameters from ``init_params`` with a
@@ -306,8 +299,12 @@ def make_lm_train_step(mesh=None, cfg: LMConfig | None = None):
     int, optional "segment_ids": (B, S)} computes the loss and its
     gradients, applies the optimizer IN PLACE under ``torch.no_grad``
     (the reference donates its state) and returns ``(state, {"loss":
-    0-d tensor})``. Dense models only (the reference's MoE aux term is 0
-    for them); the fused loss path raises until its module is ported."""
+    0-d tensor})``. The loss is ``lm_loss`` on the logits, or, with
+    ``cfg.loss_impl == "fused"`` (or ``"auto"`` at sequences of
+    ``AUTO_FUSED_MIN_SEQ`` and more), ``fused_lm_loss`` on the hidden
+    states against the tied embedding in tiles of ``cfg.ce_block``
+    rows, as the reference dispatches. Dense models only (the
+    reference's MoE aux term is 0 for them)."""
     if mesh is not None:
         raise NotImplementedError(
             "sharded training belongs to the parallel/ slice of the port "
@@ -323,14 +320,15 @@ def make_lm_train_step(mesh=None, cfg: LMConfig | None = None):
         fused = loss_cfg.loss_impl == "fused" or (
             loss_cfg.loss_impl == "auto"
             and tokens.shape[1] >= AUTO_FUSED_MIN_SEQ)
-        if fused:
-            raise NotImplementedError(
-                "the fused cross-entropy (ops/cross_entropy.py) is not "
-                "ported yet (ROADMAP A7); use loss_impl='dense' or "
-                f"sequences shorter than {AUTO_FUSED_MIN_SEQ}")
         leaves = [t for _, t in flatten(state.params)]
-        logits = state.apply_fn(state.params, tokens, seg)
-        loss = lm_loss(logits, tokens, seg)
+        if fused:
+            hidden = state.apply_fn(state.params, tokens, seg,
+                                    return_hidden=True)
+            loss = fused_lm_loss(hidden, state.params["embed"]["embedding"],
+                                 tokens, seg, block=loss_cfg.ce_block)
+        else:
+            logits = state.apply_fn(state.params, tokens, seg)
+            loss = lm_loss(logits, tokens, seg)
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
             state.tx.update(grads, state.opt_state, state.params)

@@ -2,7 +2,9 @@
 
 Each kernel module holds a wrapper that launches the CUDA kernel on a
 CUDA tensor (or raises) and runs the plain PyTorch version beside it on
-a CPU tensor. Ring attention belongs to a later slice.
+a CPU tensor. ``cross_entropy`` holds no kernel: the vocab-tiled loss is
+torch GEMMs, as the reference's is XLA outside any Pallas kernel. Ring
+attention belongs to a later slice.
 """
 
 from kubeflow_tpu_torch.ops.attention import (
@@ -13,6 +15,7 @@ from kubeflow_tpu_torch.ops.attention import (
     flash_forward,
     mha_reference,
 )
+from kubeflow_tpu_torch.ops.cross_entropy import fused_ce, fused_lm_loss
 
 __all__ = [
     "flash_attention",
@@ -21,4 +24,6 @@ __all__ = [
     "flash_dkv",
     "mha_reference",
     "apply_rope",
+    "fused_ce",
+    "fused_lm_loss",
 ]

@@ -2,8 +2,9 @@
 and checkpointed train loop (``models/train.py``) against the JAX
 package's, on the CPU.
 
-Format: for the same LM train state (carried across with
-``train_state_from_jax``) both packages write the same shard files, byte
+Format: for the same LM train state, and for the same resnet18 state
+(params, ``batch_stats`` and the SGD trace), each carried across with
+``train_state_from_jax``, both packages write the same shard files, byte
 for byte, so their per-shard digests agree; a checkpoint of either
 package restores into the other bit for bit and both continue training
 to equal losses (f32, 1e-5 absolute, as ``tests/test_torch_train.py``
@@ -47,13 +48,19 @@ from kubeflow_tpu.models import LMConfig as JConfig
 from kubeflow_tpu.models import build_lm as jbuild_lm
 from kubeflow_tpu.models import checkpoint as jckpt
 from kubeflow_tpu.models import create_lm_state as jcreate_lm_state
+from kubeflow_tpu.models import create_train_state as jcreate_train_state
 from kubeflow_tpu.models import make_lm_train_step as jmake_step
+from kubeflow_tpu.models import make_train_step as jmake_image_step
+from kubeflow_tpu.models import resnet18 as jresnet18
 from kubeflow_tpu_torch.models import checkpoint as ckpt
 from kubeflow_tpu_torch.models import (
     LMConfig,
     build_lm,
     create_lm_state,
+    create_train_state,
     make_lm_train_step,
+    make_train_step,
+    resnet18,
 )
 from kubeflow_tpu_torch.models.checkpoint import (
     ENV_CHECKPOINT_DIR,
@@ -288,6 +295,108 @@ def small_state(step: int, kind: str = "numpy"):
 def small_like():
     return {"w": np.zeros(16, np.float32), "b": np.zeros((2, 3), np.float32),
             "step": np.int32(0)}
+
+
+# ---------------------------------------------------------------------------
+# a resnet18 state: params, batch_stats and the SGD chain's trace
+# ---------------------------------------------------------------------------
+
+
+def _image_batch(seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(4, 32, 32, 3)).astype(np.float32),
+            rng.integers(0, 8, size=(4,)))
+
+
+@pytest.fixture(scope="module")
+def image():
+    """The reference's checkpoint fixture (``tests/test_checkpoint.py``
+    ``trained_state``): a resnet18 of width 8 after one step, so the
+    trace and the running averages have moved; f32 compute, so that a
+    step after a restore compares tightly on both sides."""
+    jmodel = jresnet18(num_classes=8, width=8, dtype=jnp.float32)
+    jstate = jcreate_train_state(jmodel, jax.random.key(0), (2, 32, 32, 3))
+    x, y = _image_batch(0)
+    jstate, _ = jmake_image_step()(jstate, {"image": jnp.asarray(x),
+                                            "label": jnp.asarray(y)})
+    return {"jmodel": jmodel,
+            "tmodel": resnet18(num_classes=8, width=8, dtype=torch.float32),
+            "jstate_np": jax.tree.map(np.asarray, jstate)}
+
+
+def _image_states(image):
+    return (jax.tree.map(jnp.asarray, image["jstate_np"]),
+            train_state_from_jax(image["tmodel"], image["jstate_np"],
+                                 device="cpu"))
+
+
+def _image_step_after(image, jstate, tstate):
+    """One more step on both sides: equal losses (f32, 5e-5 absolute, as
+    ``tests/test_torch_resnet.py`` holds a carried state)."""
+    x, y = _image_batch(1)
+    jstate, jm = jmake_image_step()(jstate, {"image": jnp.asarray(x),
+                                             "label": jnp.asarray(y)})
+    tstate, tm = make_train_step()(tstate, {"image": torch.from_numpy(x),
+                                            "label": torch.from_numpy(y)})
+    assert abs(float(tm["loss"]) - float(jm["loss"])) <= 5e-5
+    assert tstate.step == int(jstate.step) == 2
+
+
+class TestImageState:
+    def test_port_and_jax_write_the_same_shards(self, image, tmp_path):
+        jstate, tstate = _image_states(image)
+        jckpt.CheckpointManager(tmp_path / "jax").save(1, jstate)
+        CheckpointManager(tmp_path / "port").save(1, tstate)
+        for name in ("shard-00000.json", "shard-00000.bin"):
+            assert ((tmp_path / "jax" / "1" / name).read_bytes()
+                    == (tmp_path / "port" / "1" / name).read_bytes()), name
+        keys = list(json.loads((tmp_path / "port" / "1" /
+                                "shard-00000.json").read_text())["leaves"])
+        assert "['batch_stats']['norm_init']['mean']" in keys
+        assert ("['opt_state'][1][0].trace['head']['kernel']" in keys)
+        assert sum(".trace[" in k for k in keys) == 62
+        files = [json.loads((tmp_path / side / "1" /
+                             MANIFEST_NAME).read_text())["files"]
+                 for side in ("jax", "port")]
+        assert files[0] == files[1]
+
+    @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+    def test_checkpoint_restores_across_packages_and_trains_on(
+            self, image, tmp_path, direction):
+        jstate, tstate = _image_states(image)
+        if direction == "jax_to_port":
+            jckpt.save_checkpoint(tmp_path, jstate, step=1)
+            like = create_train_state(image["tmodel"], seed=9,
+                                      input_shape=(2, 32, 32, 3),
+                                      device="cpu")
+            tstate = restore_checkpoint(tmp_path, like)
+            assert tstate.tx is like.tx and tstate.apply_fn is like.apply_fn
+            assert all(p.requires_grad for _, p in flatten(tstate.params))
+        else:
+            save_checkpoint(tmp_path, tstate, step=1)
+            like = jcreate_train_state(image["jmodel"], jax.random.key(9),
+                                       (2, 32, 32, 3))
+            jstate = jckpt.restore_checkpoint(tmp_path, like)
+            tstate = _image_states(image)[1]
+        _assert_same_state(tstate, jstate)
+        _image_step_after(image, jstate, tstate)
+
+    def test_port_roundtrip_restores_every_leaf(self, image, tmp_path):
+        state = _image_states(image)[1]
+        CheckpointManager(tmp_path).save(1, state)
+        like = create_train_state(image["tmodel"], seed=3,
+                                  input_shape=(2, 32, 32, 3), device="cpu")
+        restored, step = CheckpointManager(tmp_path).restore_latest_valid(
+            like)
+        assert step == 1 and restored.step == 1
+        want = dict(ckpt._flatten_keys(ckpt._arrays_only(state)))
+        got = dict(ckpt._flatten_keys(ckpt._arrays_only(restored)))
+        assert got.keys() == want.keys()
+        for key, leaf in want.items():
+            if isinstance(leaf, torch.Tensor):
+                assert torch.equal(got[key], leaf), key
+        assert restored.batch_stats is not like.batch_stats
+        assert restored.opt_state[1][0].trace is not like.opt_state[1][0].trace
 
 
 class TestCheckpoint:

@@ -761,3 +761,130 @@ def test_stacked_and_rolling_chunk_decode_on_the_card(card):
         out, chunked = tdec.forward_with_cache(cfg, params,
                                                tokens[:, a:a + 50], chunked)
     assert float((out[0, -1] - ref[0, -1]).abs().max()) <= TOL_LOGITS_TWINS
+
+
+def test_fused_cross_entropy_on_the_card_matches_its_cpu_result(card):
+    """The vocab-tiled loss with bf16 hidden states and an f32 table on
+    the card (``torch.mm(..., out_dtype=float32)`` tile products) against
+    the same call on the CPU (operands widened to f32): the loss to 1e-5
+    relative, dx (bf16) and demb (f32) within TOL_BF16, since ``dlog``
+    rounds to bf16 from p computed in another summation order. A vocab of
+    5000 in tiles of 1024 leaves a padded tail tile."""
+    from kubeflow_tpu_torch.ops.cross_entropy import fused_ce
+
+    x = _randn(card, 1000, 256)
+    emb = torch.randn(5000, 256, device="cuda", generator=card) * 0.05
+    targets = torch.randint(0, 5000, (1000,), device="cuda", generator=card)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xd = x.detach().to(dev).requires_grad_(True)
+        ed = emb.detach().to(dev).requires_grad_(True)
+        loss = fused_ce(xd, ed, targets.to(dev), 1024).mean()
+        gx, ge = torch.autograd.grad(loss, (xd, ed))
+        out[dev] = (loss.detach().cpu(), gx.cpu(), ge.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=0)
+    assert out["cuda"][1].dtype == torch.bfloat16
+    assert out["cuda"][2].dtype == torch.float32
+    _assert_close(out["cuda"][1], out["cpu"][1], TOL_BF16)
+    _assert_close(out["cuda"][2], out["cpu"][2], TOL_BF16)
+
+
+def test_flash_kernels_at_s8192_match_twins(card):
+    """The long-context shape (B=1, 8 heads, S=8192, d=128, causal; 128
+    query tiles a head): the forward with lse, dq and dk/dv against their
+    twins."""
+    from kubeflow_tpu_torch.ops.attention import (
+        flash_dkv,
+        flash_dkv_reference,
+        flash_dq,
+        flash_dq_reference,
+        flash_forward,
+        flash_forward_reference,
+    )
+
+    q, k, v, do = (_randn(card, 1, 8, 8192, 128) for _ in range(4))
+    o, lse = flash_forward(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_forward_reference(q, k, v, causal=True)
+    _assert_close(o, o_ref, TOL_BF16)
+    _assert_close(lse, lse_ref, TOL_F32)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta)
+    dq = flash_dq(*args, causal=True)
+    dk, dv = flash_dkv(*args, causal=True)
+    torch.cuda.synchronize()
+    _assert_close(dq, flash_dq_reference(*args, causal=True), TOL_BF16)
+    dk_ref, dv_ref = flash_dkv_reference(*args, causal=True)
+    _assert_close(dk, dk_ref, TOL_BF16)
+    _assert_close(dv, dv_ref, TOL_BF16)
+
+
+def test_resnet18_train_step_on_the_card_matches_the_cpu(card):
+    """resnet18 (width 8, f32, 32x32) from one seeded state, every
+    BatchNorm scale moved off its init: train-mode logits and one step
+    (loss, params, batch_stats, SGD trace) on the card against the CPU,
+    with TF32 off (cuDNN allows it for f32 convolutions by default): the
+    same f32 arithmetic in another summation order, 1e-4 relative per
+    leaf (in norm, a leaf floored at 2^-8 of its group's RMS, as the CPU
+    tests hold the port to the JAX package)."""
+    from kubeflow_tpu_torch.models import (
+        create_train_state,
+        make_train_step,
+        resnet18,
+    )
+    from kubeflow_tpu_torch.models.checkpoint import (
+        _arrays_only,
+        _flatten_keys,
+    )
+
+    model = resnet18(num_classes=10, width=8, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(11)
+    images = torch.randn((16, 32, 32, 3), generator=gen)
+    labels = torch.randint(0, 10, (16,), generator=gen)
+    states = {dev: create_train_state(model, seed=5,
+                                      input_shape=(16, 32, 32, 3),
+                                      device=dev) for dev in ("cpu", "cuda")}
+
+    def leaves(state):
+        return {k: v for k, v in _flatten_keys(_arrays_only(state))
+                if isinstance(v, torch.Tensor)}
+
+    card_leaves = leaves(states["cuda"])
+    with torch.no_grad():
+        for key, leaf in leaves(states["cpu"]).items():
+            if key.endswith("['scale']"):
+                leaf.add_(torch.randn(leaf.shape, generator=gen) * 0.2)
+                card_leaves[key].copy_(leaf)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        logits = {dev: model(s.params, s.batch_stats, images.to(dev),
+                             train=True)[0].detach().cpu()
+                  for dev, s in states.items()}
+        torch.testing.assert_close(
+            logits["cuda"], logits["cpu"], rtol=0,
+            atol=1e-4 * float(logits["cpu"].abs().max()))
+        losses = {}
+        for dev, s in states.items():
+            _, metrics = make_train_step()(s, {"image": images.to(dev),
+                                               "label": labels.to(dev)})
+            losses[dev] = float(metrics["loss"])
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4
+    got = {k: v.detach().cpu().double() for k, v in
+           leaves(states["cuda"]).items()}
+    want = {k: v.detach().double() for k, v in leaves(states["cpu"]).items()}
+    for group in ("['params']", "['batch_stats']", "['opt_state']"):
+        keys = [k for k in want if k.startswith(group)]
+        rms = (sum(float(want[k].pow(2).sum()) for k in keys)
+               / sum(want[k].numel() for k in keys)) ** 0.5
+        for k in keys:
+            floor = ROW_RMS_FLOOR * rms * want[k].numel() ** 0.5
+            err = float((got[k] - want[k]).norm()) / max(
+                float(want[k].norm()), floor)
+            assert err <= 1e-4, (k, err)

@@ -24,7 +24,6 @@ with its reason:
 
 from __future__ import annotations
 
-import dataclasses
 import importlib.util
 import pathlib
 
@@ -285,18 +284,6 @@ def test_train_step_matches_jax_from_a_carried_state(dtype, segmented):
         ref_update = torch.from_numpy(np.array(want)) - init[path]
         err = (p.detach() - init[path] - ref_update).norm() / ref_update.norm()
         assert err <= (5e-3 if f32 else 0.25), (path, float(err))
-
-
-def test_fused_loss_raises_until_its_module_is_ported():
-    cfg = LMConfig(dtype=torch.float32, loss_impl="fused", **SMALL)
-    state = create_lm_state(build_lm(cfg), seed=0, device="cpu")
-    step = make_lm_train_step(cfg=cfg)
-    with pytest.raises(NotImplementedError, match="A7"):
-        step(state, {"tokens": torch.zeros(1, 16, dtype=torch.long)})
-    auto = make_lm_train_step(cfg=dataclasses.replace(cfg, loss_impl="auto"))
-    with pytest.raises(NotImplementedError, match="cross_entropy"):
-        auto(state, {"tokens": torch.zeros(1, 8192, dtype=torch.long)})
-    assert state.step == 0
 
 
 def test_port_loss_falls_and_a_trained_state_serves_without_a_graph():
