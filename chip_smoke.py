@@ -17,7 +17,9 @@ Phases (a failed phase raises; nothing is caught):
    training shape (batch 4, 8 heads,
    S=2048, head dim 128), four more masks and the long phase's shape
    (batch 1, 8 heads, S=8192; SDPA's forward and backward as the library
-   calls), element by element within the stated tolerance
+   calls), the flash forward also at the spec-p8k prefill (batch 1, 8
+   heads, 2 kv heads, S=8192, no lse), element by element within the
+   stated tolerance
    (see ``check_close``); the GEMV's int8 cases launch as the model
    does (scale in the kernel with a residual, after it without); two
    launches of the GEMV must give equal bits (tied head in bf16 and
@@ -115,6 +117,48 @@ Phases (a failed phase raises; nothing is caught):
    trace included). Printed: images/s, step ms, MFU
    (3 x forward FLOPs x images/s over 989 TFLOP/s), peak memory, and one
    step under ``torch.profiler``.
+
+11. spec (run right after serve, on its params; 11-12 print there):
+   ``speculative_generate`` at bench.py's two speculative
+   sections on the serve params (GQA flagship, bf16, seed 0): a 64-token
+   random segment (numpy seed 0) tiled to 1024 tokens, 256 new, and to
+   8192, 128 new; draft 8, n-gram 3; each greedy and sampled (T 0.8,
+   seed 5), beside ``generate`` on the same call. The verify chunk's
+   dense products and ``generate``'s single-token kernels round
+   differently, so the streams need not match bit for bit; instead
+   (gate 1) at the first token where a stream leaves ``generate``'s,
+   ``generate``'s own scores there (replayed call by call, plus T times
+   that step's Gumbel row when sampling) put the two tokens within
+   TOL_LOGITS, and (gate 2) every emitted token's score in one f32 plain
+   full-sequence forward of prompt + output is within TOL_LOGITS of its
+   position's best. The prefill launches the flash kernel once a layer.
+   Printed: tokens/s, accept rate, tokens per verify, verify calls,
+   ``decode_step_ms``, and ``generate``'s tokens/s on the same call.
+12. spec_serve: ``make_engine(max_batch=8, max_len=2048,
+   spec_ngram=True)`` with its ``Scheduler`` on 8 tiled prompts of 256
+   to 1024 tokens (6 greedy, 2 sampled), 64 new tokens each; gates 1
+   and 2 on every stream; the verify and commit histograms count every
+   verify; then the same requests on a lockstep engine, whose streams
+   must equal ``generate``. Printed: decode tokens/s of both engines.
+13. moe: bench.py's ``lm_moe`` sections: the train config with 8
+   experts in every 2nd block (369,148,928 parameters), f32 parameters,
+   bf16 compute, AdamW with a bf16 first moment, batch 4 x 2048, seed 0,
+   capacity 320 a row. Step 0 of the kernel path against
+   ``build_lm(use_flash=False)`` with the kernel pass's expert choices
+   pinned to the plain pass's (the aux term included: loss within 1e-2,
+   each leaf's gradient within TRAIN_GRAD_TOL; the flipped choices and
+   the unpinned worst leaf printed); 6 steps of top-k
+   routing, then 6 of expert choice, each from a fresh state: per-expert
+   load within the capacity, no slot held twice, finite and falling
+   losses, 8 launches of each flash kernel a step; one step of each
+   under ``torch.profiler`` and the layer's forward parts timed. Then a
+   fresh bf16 init of the top-k config through ``make_engine``, which
+   must return the ``GenerateFallbackEngine``: 4 requests (prompts 256
+   to 1024, 32 new, one sampled) equal to ``generate`` bit for bit, every
+   serving kernel launched; and MoE decode against the f32 plain path:
+   prefill and first-step logits within TOL_LOGITS at every position
+   routed alike on both paths, at most 1% of token-layer routings
+   differing.
 
 Output: one JSON line per phase, the ``{"kernels": [...]}`` summary,
 the card's name and power limit, and last
@@ -473,9 +517,11 @@ def kernel_phase(torch, timer):
                library, nbytes, flops, bitwise_deterministic=True,
                batch_invariant=True)
 
-    # ---- flash forward: the empty-cache prefill, B=1, S=1024.
-    s, d = 1024, 128
-    for name, window in [("causal", None), ("window", 256)]:
+    # ---- flash forward: the empty-cache prefill, B=1, S=1024, and the
+    # speculative p8k section's prefill at S=8192 (no lse).
+    d = 128
+    for name, s, window in [("causal", 1024, None), ("window", 1024, 256),
+                            ("p8k", 8192, None)]:
         q = randn(1, h, s, d)
         kk, vv = randn(1, hkv, s, d), randn(1, hkv, s, d)
         out = flash_attention(q, kk, vv, causal=True, window=window)
@@ -660,16 +706,22 @@ def serve_requests(torch, cfg):
     return prompts, [0.0] * 6 + [0.8, 0.8], [None] * 6 + [11, 12]
 
 
-def stream(torch, engine, prompts, temps, seeds):
+def stream(torch, engine, prompts, temps, seeds, new_tokens=NEW_TOKENS,
+           first_token_s=None):
     """Every request through ``submit_stream`` with a ``Scheduler`` thread
-    answering; returns each request's events and the wall seconds."""
+    answering; returns each request's events and the wall seconds.
+    ``first_token_s``, a list, receives each request's seconds from the
+    start to its first token."""
     from kubeflow_tpu_torch.serving import Scheduler
 
     events = [[] for _ in prompts]
     done = [threading.Event() for _ in prompts]
+    firsts = [None] * len(prompts)
 
     def sink_for(i):
         def sink(event):
+            if firsts[i] is None:
+                firsts[i] = time.perf_counter() - started
             events[i].append(event)
             if event.get("done"):
                 done[i].set()
@@ -681,7 +733,7 @@ def stream(torch, engine, prompts, temps, seeds):
     try:
         for i, prompt in enumerate(prompts):
             engine.submit_stream(prompt, sink_for(i),
-                                 max_new_tokens=NEW_TOKENS,
+                                 max_new_tokens=new_tokens,
                                  temperature=temps[i], rng=seeds[i])
         for i, ev in enumerate(done):
             while not ev.wait(0.5):
@@ -694,6 +746,8 @@ def stream(torch, engine, prompts, temps, seeds):
         sched.stop()
     if sched.failures_total:
         _fail("the scheduler thread reported failed cycles")
+    if first_token_s is not None:
+        first_token_s.extend(firsts)
     return events, time.perf_counter() - started
 
 
@@ -2151,6 +2205,635 @@ def resnet_phase(torch, root) -> dict:
     }
 
 
+# ---------------------------------------------------------- speculative
+
+# spec phase: bench.py's two speculative sections (bench.py:485-555 and
+# 967-979) at their defaults: (name, prompt length, new tokens), draft 8,
+# n-gram 3, the prompt a 64-token random segment (numpy seed 0) tiled to
+# its length; each greedy, then sampled at SPEC_TEMPERATURE.
+SPEC_RUNS = (("spec-b1", 1024, 256), ("spec-b1-p8k", 8192, 128))
+SPEC_DRAFT, SPEC_NGRAM, SPEC_PERIOD = 8, 3, 64
+SPEC_TEMPERATURE, SPEC_SEED = 0.8, 5
+# spec_serve: 8 tiled prompts (numpy seeds 100-107), the last two sampled.
+SPEC_SERVE_LENGTHS = (1024, 768, 512, 256, 640, 384, 896, 320)
+SPEC_SERVE_TEMPS = (0.0,) * 6 + (0.8, 0.8)
+SPEC_SERVE_SEEDS = (None,) * 6 + (21, 22)
+# What a speculative run must launch: the flash forward, once a layer for
+# its prefill (the verify chunks' 9 rows and more take dense products).
+SPEC_KERNELS = ("flash_attention",)
+
+
+def tiled_prompt(vocab: int, length: int, seed: int) -> list[int]:
+    """bench.py's speculative prompt: a SPEC_PERIOD-token random segment
+    (numpy ``default_rng(seed)``) tiled to ``length``."""
+    import numpy as np
+
+    base = np.random.default_rng(seed).integers(0, vocab, size=SPEC_PERIOD)
+    return [int(t) for t in
+            np.tile(base, -(-length // SPEC_PERIOD))[:length]]
+
+
+def noise_rows(torch, seed, n: int, vocab: int):
+    """The first ``n`` Gumbel rows a request seeded ``seed`` draws, one
+    (1, vocab) row at a time as ``generate`` draws them: (n, vocab)."""
+    from kubeflow_tpu_torch.models.decoding import gumbel_noise, make_generator
+
+    gen = make_generator(seed, "cuda")
+    return torch.cat([gumbel_noise(gen, (1, vocab), "cuda")
+                      for _ in range(n)])
+
+
+def generate_scores(torch, cfg, params, prompt, ref, at, temperature, seed):
+    """The scores ``generate`` took the argmax of at token ``at`` of its
+    own stream ``ref``: its very calls replayed (the prefill, then one
+    token a step on a cache of its capacity), plus temperature times that
+    step's Gumbel row when sampling. (vocab,) f32."""
+    from kubeflow_tpu_torch.models.decoding import KVCache, forward_with_cache
+
+    cache = KVCache.init(cfg, 1, len(prompt) + len(ref) - 1)
+    logits, cache = forward_with_cache(cfg, params, [prompt], cache,
+                                       last_logits_only=True)
+    for token in ref[:at]:
+        logits, cache = forward_with_cache(cfg, params, [[token]], cache)
+    row = logits[0, -1].float()
+    if temperature > 0.0:
+        row = row + temperature * noise_rows(torch, seed, at + 1,
+                                             cfg.vocab)[at]
+    return row
+
+
+def first_divergence(torch, cfg, params, prompt, got, ref, temperature,
+                     seed, label) -> dict | None:
+    """Gate 1: at the first token where a speculative stream ``got``
+    leaves ``generate``'s ``ref``, generate's own scores there put the
+    two tokens within TOL_LOGITS. None when the streams agree."""
+    at = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b), None)
+    if at is None:
+        return None
+    row = generate_scores(torch, cfg, params, prompt, ref, at, temperature,
+                          seed)
+    if int(row.argmax()) != ref[at]:
+        _fail(f"{label}: the replay of generate does not give its token "
+              f"{ref[at]} at {at}")
+    gap = float(row[ref[at]] - row[got[at]])
+    if not gap <= TOL_LOGITS:
+        _fail(f"{label}: at token {at} the stream took {got[at]}, "
+              f"{gap} below generate's {ref[at]} (limit {TOL_LOGITS})")
+    return {"at": at, "gap": gap}
+
+
+def plain_gap(torch, cfg, params32, prompt, tokens, temperature,
+              seed) -> float:
+    """Gate 2: one f32 plain full-sequence forward of prompt + tokens;
+    the largest amount by which an emitted token's score falls below its
+    position's best (scores: logits, plus temperature times the token's
+    Gumbel row when sampling). Fails past TOL_LOGITS."""
+    from kubeflow_tpu_torch.models import build_lm
+    from kubeflow_tpu_torch.models.transformer import tied_head
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p, n = len(prompt), len(tokens)
+    with torch.no_grad():
+        hidden = build_lm(cfg32, use_flash=False)(
+            params32, torch.tensor([prompt + tokens], device="cuda"),
+            return_hidden=True)
+        rows = tied_head(hidden[:, p - 1:p - 1 + n],
+                         params32["embed"]["embedding"], torch.float32)[0]
+    if temperature > 0.0:
+        rows = rows + temperature * noise_rows(torch, seed, n, cfg.vocab)
+    picked = rows.gather(1, torch.tensor(tokens, device="cuda")[:, None])
+    gap = float((rows.max(-1).values - picked[:, 0]).max())
+    if not gap <= TOL_LOGITS:
+        _fail(f"an emitted token's f32 plain score is {gap} below its "
+              f"position's best (limit {TOL_LOGITS})")
+    return gap
+
+
+def f32_params(torch, params):
+    from kubeflow_tpu_torch.models.optim import tree_map
+
+    return tree_map(lambda t: t.detach().float(), params)
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def spec_phase(torch, cfg, params):
+    """``speculative_generate`` at bench's two configs on the serve
+    params, greedy and sampled, with the launch counters zeroed just
+    before the speculative runs and read just after; the same calls of
+    ``generate`` beside them; gates 1 and 2 on every stream."""
+    from kubeflow_tpu_torch.models.decoding import generate
+    from kubeflow_tpu_torch.models.speculative import speculative_generate
+    from kubeflow_tpu_torch.ops import _build
+
+    params32 = f32_params(torch, params)
+    kw = dict(draft=SPEC_DRAFT, ngram=SPEC_NGRAM)
+    # Warm-up: the verify chunk's first dense products and allocations.
+    speculative_generate(cfg, params, [tiled_prompt(cfg.vocab, 256, 0)], 16,
+                         **kw)
+    runs, total = {}, {name: 0 for name in _build.LAUNCHES}
+    for name, plen, new in SPEC_RUNS:
+        prompt = tiled_prompt(cfg.vocab, plen, 0)
+        run = {"prompt": plen, "new_tokens": new, "draft": SPEC_DRAFT,
+               "ngram": SPEC_NGRAM}
+        for mode, temp, seed in (("greedy", 0.0, None),
+                                 ("sampled", SPEC_TEMPERATURE, SPEC_SEED)):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            (out, stats), dt = timed(torch, lambda: speculative_generate(
+                cfg, params, [prompt], new, temperature=temp, rng=seed,
+                return_stats=True, **kw))
+            launches = dict(_build.LAUNCHES)
+            for kernel, count in launches.items():
+                total[kernel] += count
+            for kernel in SPEC_KERNELS:
+                if launches[kernel] != cfg.layers:
+                    _fail(f"spec[{name}]: {kernel} launched "
+                          f"{launches[kernel]} times, not once a layer")
+            ref, gen_dt = timed(torch, lambda: generate(
+                cfg, params, [prompt], new, temperature=temp, rng=seed))
+            got, ref = out[0].tolist(), ref[0].tolist()
+            if len(got) != new or not all(0 <= t < cfg.vocab for t in got):
+                _fail(f"spec[{name}]: a malformed stream")
+            run[mode] = {
+                "tok_s": new / dt, "decode_step_ms": dt / new * 1e3,
+                "accept_rate": stats.accept_rate,
+                "tokens_per_verify": stats.tokens_per_verify,
+                "verify_calls": stats.verify_calls,
+                "generate_tok_s": new / gen_dt,
+                "generate_decode_step_ms": gen_dt / new * 1e3,
+                "equal_to_generate": got == ref,
+                "first_divergence": first_divergence(
+                    torch, cfg, params, prompt, got, ref, temp, seed,
+                    f"spec[{name}/{mode}]"),
+                "plain_gap_max": plain_gap(torch, cfg, params32, prompt,
+                                           got, temp, seed),
+                "launches": launches}
+        runs[name] = run
+    # spec-b1's greedy run once more under the profiler: where a verify's
+    # device time goes, and how idle the card is between verifies.
+    from torch.profiler import ProfilerActivity, profile
+
+    name, plen, new = SPEC_RUNS[0]
+    prompt = tiled_prompt(cfg.vocab, plen, 0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, traced_s = timed(torch, lambda: speculative_generate(
+            cfg, params, [prompt], new, **kw))
+    return {"phase": "spec", "runs": runs, "launches": total,
+            "logit_tol": TOL_LOGITS,
+            "traced": {"run": name, "wall_s": traced_s,
+                       **device_breakdown(prof)}}
+
+
+def spec_serve_phase(torch, cfg, params):
+    """The speculative engine (``make_engine(spec_ngram=True)``) on 8
+    tiled requests with its ``Scheduler``, the counters zeroed just before
+    and read just after; then the same requests on a lockstep engine,
+    whose streams must equal ``generate``; gates 1 and 2 on the
+    speculative streams."""
+    from kubeflow_tpu_torch.models.decoding import generate
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.serving import StreamingBatcher, make_engine
+
+    prompts = [tiled_prompt(cfg.vocab, n, 100 + i)
+               for i, n in enumerate(SPEC_SERVE_LENGTHS)]
+    temps, seeds = list(SPEC_SERVE_TEMPS), list(SPEC_SERVE_SEEDS)
+    engine = make_engine(cfg, params, max_batch=8, max_len=2048,
+                         spec_ngram=True, spec_draft=SPEC_DRAFT,
+                         spec_ngram_n=SPEC_NGRAM)
+    if not (isinstance(engine, StreamingBatcher) and engine.spec_ngram):
+        _fail("make_engine(spec_ngram=True) did not build a speculative "
+              "engine")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    events, wall = stream(torch, engine, prompts, temps, seeds,
+                          new_tokens=NEW_TOKENS)
+    launches = dict(_build.LAUNCHES)
+    for kernel in SPEC_KERNELS:
+        if launches[kernel] <= 0:
+            _fail(f"spec_serve: {kernel} was never launched")
+    lock = make_engine(cfg, params, max_batch=8, max_len=2048)
+    lock_events, lock_wall = stream(torch, lock, prompts, temps, seeds,
+                                    new_tokens=NEW_TOKENS)
+    params32 = f32_params(torch, params)
+    gates, equal = [], 0
+    for i, prompt in enumerate(prompts):
+        got = next(e for e in events[i] if e.get("done"))["tokens"]
+        locked = next(e for e in lock_events[i] if e.get("done"))["tokens"]
+        ref = generate(cfg, params, [prompt], NEW_TOKENS,
+                       temperature=temps[i], rng=seeds[i])[0].tolist()
+        if locked != ref:
+            _fail(f"spec_serve: the lockstep engine's request {i} differs "
+                  "from generate")
+        if len(got) != NEW_TOKENS:
+            _fail(f"spec_serve: request {i} streamed {len(got)} tokens")
+        equal += got == ref
+        gates.append({
+            "first_divergence": first_divergence(
+                torch, cfg, params, prompt, got, ref, temps[i], seeds[i],
+                f"spec_serve[{i}]"),
+            "plain_gap_max": plain_gap(torch, cfg, params32, prompt, got,
+                                       temps[i], seeds[i])})
+    counts = {phase: engine.cycle_seconds[phase].count
+              for phase in ("verify", "commit")}
+    if not counts["verify"] == counts["commit"] == \
+            engine.spec_verifies_total > 0:
+        _fail(f"spec_serve: verify/commit histograms {counts}, "
+              f"{engine.spec_verifies_total} verifies")
+
+    def decode_rate(eng):
+        decode_s = eng.profiler.snapshot()["decode"]["total_s"]
+        return (len(prompts) * (NEW_TOKENS - 1)) / decode_s, decode_s
+
+    spec_rate, spec_decode_s = decode_rate(engine)
+    lock_rate, lock_decode_s = decode_rate(lock)
+    return {
+        "phase": "spec_serve", "requests": len(prompts),
+        "new_tokens": NEW_TOKENS, "wall_s": wall, "lockstep_wall_s": lock_wall,
+        "decode_tok_s": spec_rate, "decode_s": spec_decode_s,
+        "lockstep_decode_tok_s": lock_rate,
+        "lockstep_decode_s": lock_decode_s,
+        "histogram_counts": counts,
+        "verifies": engine.spec_verifies_total,
+        "drafted": engine.spec_drafted_total,
+        "accepted": engine.spec_accepted_total,
+        "accept_rate": engine.spec_accepted_total / engine.spec_drafted_total,
+        "streams_equal_to_generate": equal, "gates": gates,
+        "cycle_profile": engine.profiler.compact(), "launches": launches,
+    }
+
+
+# ------------------------------------------------------------------ moe
+
+# moe phase: bench.py's lm_moe sections (bench.py:858-868) on the train
+# config: 8 experts in every 2nd block, f32 parameters, bf16 compute,
+# batch 4 x 2048, seed 0 (369,148,928 parameters).
+MOE_EXPERTS, MOE_EVERY, MOE_STEPS = 8, 2, 6
+MOE_PARAMS = 369_148_928
+# The fallback engine's 4 requests: prompt lengths, 32 new tokens each,
+# the last one sampled.
+MOE_SERVE_LENGTHS, MOE_NEW_TOKENS = (1024, 768, 512, 256), 32
+MOE_SERVE_TEMPS, MOE_SERVE_SEEDS = (0.0, 0.0, 0.0, 0.8), (None, None, None, 13)
+# MoE decode against the f32 plain path: the share of token-layer
+# routings that may differ (bf16 vs f32 router inputs flip near-tied
+# choices; a flipped token's own logits are not compared).
+MOE_ROUTING_FLIP_MAX = 0.01
+MOE_DECODE_PROMPT = 512
+
+
+def moe_config(torch, router: str = "topk"):
+    return dataclasses.replace(train_config(torch), moe_experts=MOE_EXPERTS,
+                               moe_every=MOE_EVERY, moe_router=router)
+
+
+class Capturing:
+    """The LM as a train state's ``apply_fn`` that keeps the MoE
+    intermediates of its last call (no extra work: the MoE step asks for
+    them anyway)."""
+
+    def __init__(self, model):
+        self.model, self.cfg, self.last = model, model.cfg, None
+
+    def __call__(self, *args, **kwargs):
+        out = self.model(*args, **kwargs)
+        if isinstance(out, tuple):
+            self.last = out[1]
+        return out
+
+
+class RoutingPin:
+    """Stands in for the port's top-k choice (``transformer.
+    _topk_choices``): it records every MoE block's choices in one pass
+    and hands them, call by call, to the next, counting the token-layer
+    choices that pass would have made otherwise. The gates still come
+    from each pass's own router probabilities."""
+
+    def __init__(self, choose):
+        self.choose, self.recorded, self.replay = choose, [], None
+        self.flips = self.routings = 0
+
+    def __call__(self, probs, k):
+        own = self.choose(probs, k)
+        if self.replay is None:
+            self.recorded.append(own)
+            return own
+        pinned = self.replay.pop(0)
+        self.flips += choices_differ(own, pinned)
+        self.routings += own[0].shape[0] * own[0].shape[1]
+        return pinned
+
+
+def choices_differ(own, pinned) -> int:
+    """Tokens whose set of choices differs between two lists of one-hots."""
+    differs = sum((a != b).any(-1).int() for a, b in zip(own, pinned))
+    return int((differs > 0).sum())
+
+
+def moe_step0(torch, cfg, state, tokens) -> dict:
+    """Gate 4: step-0 loss (aux term included) and every leaf's gradient
+    of the kernel path against ``build_lm(use_flash=False)``, with the
+    routing pinned: a bf16 attention core moves router inputs by an ulp,
+    which flips near-tied expert choices and moves whole tokens between
+    experts, so the kernel pass routes to the plain pass's choices
+    (``RoutingPin``) and the two differ only in the attention core. The
+    kernel path's own routing is read too: its flips and its unpinned
+    worst leaf are printed, not gated."""
+    from kubeflow_tpu_torch.models import build_lm, lm_loss
+    from kubeflow_tpu_torch.models import transformer
+    from kubeflow_tpu_torch.models.optim import flatten
+    from kubeflow_tpu_torch.models.transformer import moe_aux_total
+
+    paths = [path for path, _ in flatten(state.params)]
+    leaves = [p for _, p in flatten(state.params)]
+    real = transformer._topk_choices
+    pin = RoutingPin(real)
+    losses, auxes, grads = {}, {}, {}
+    try:
+        for name, use_flash in (("plain", False), ("kernel", True),
+                                ("kernel_unpinned", True)):
+            if name == "kernel":
+                pin.replay = list(pin.recorded)
+            transformer._topk_choices = pin if name != "kernel_unpinned" \
+                else real
+            logits, inter = build_lm(cfg, use_flash=use_flash)(
+                state.params, tokens, return_intermediates=True)
+            aux = moe_aux_total(inter)
+            loss = lm_loss(logits, tokens) + cfg.moe_aux_weight * aux
+            grads[name] = torch.autograd.grad(loss, leaves)
+            losses[name] = float(loss.detach())
+            auxes[name] = float(aux.detach())
+            del logits, inter, loss
+    finally:
+        transformer._topk_choices = real
+
+    def rel(a, b):
+        return {path: float((g - r).norm() / r.norm())
+                for path, g, r in zip(paths, grads[a], grads[b])}
+
+    per_leaf = rel("kernel", "plain")
+    worst, err = max(per_leaf.items(), key=lambda kv: kv[1])
+    unpinned = max(rel("kernel_unpinned", "plain").items(),
+                   key=lambda kv: kv[1])
+    if not abs(losses["kernel"] - losses["plain"]) <= TRAIN_LOSS_TOL:
+        _fail(f"moe step-0 loss {losses} differs by more than "
+              f"{TRAIN_LOSS_TOL}")
+    if not err <= TRAIN_GRAD_TOL:
+        _fail(f"moe step-0 gradient of {worst} is {err} from the plain "
+              f"path's in relative norm (limit {TRAIN_GRAD_TOL})")
+    return {"loss": losses, "aux": auxes, "grad_rel_err_max": err,
+            "grad_rel_err_worst_leaf": worst, "grad_tol": TRAIN_GRAD_TOL,
+            "routing_flips": pin.flips, "routings": pin.routings,
+            "unpinned_worst_leaf": unpinned}
+
+
+def moe_parts_ms(torch, timer, cfg, block, x) -> dict:
+    """Forward device ms of the MoE layer's parts on one block at the
+    train shape (CUDA events): the router and routing, the dispatch
+    einsum, the experts' GEMMs, the combine einsum."""
+    from kubeflow_tpu_torch.models.transformer import (
+        moe_combine,
+        moe_dispatch,
+        moe_experts,
+        moe_route,
+    )
+
+    with torch.no_grad():
+        dispatch_t, combine_t = moe_route(cfg, block, x)
+        expert_in = moe_dispatch(cfg, x, dispatch_t)
+        expert_out = moe_experts(cfg, block, expert_in)
+        return {
+            "routing": timer(lambda: moe_route(cfg, block, x), iters=10),
+            "dispatch": timer(lambda: moe_dispatch(cfg, x, dispatch_t),
+                              iters=10),
+            "experts": timer(lambda: moe_experts(cfg, block, expert_in),
+                             iters=10),
+            "combine": timer(lambda: moe_combine(cfg, combine_t,
+                                                 expert_out), iters=10)}
+
+
+def moe_train(torch, timer, router: str, tokens) -> dict:
+    """MOE_STEPS steps of ``make_lm_train_step`` for one router from a
+    fresh seed-0 state, the counters zeroed just before and read just
+    after (8 launches of each flash kernel a step), routing diagnostics
+    from each step (per-expert load within the capacity, no slot held
+    twice), finite and falling losses; then one step under the profiler
+    and the forward parts timed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.models import (
+        build_lm,
+        create_lm_state,
+        make_lm_train_step,
+    )
+    from kubeflow_tpu_torch.models.transformer import (
+        _moe_capacity,
+        param_count,
+    )
+    from kubeflow_tpu_torch.ops import _build
+
+    cfg = moe_config(torch, router)
+    capture = Capturing(build_lm(cfg))
+    state = create_lm_state(capture.model, seed=0)
+    state.apply_fn = capture
+    count = param_count(state.params)
+    if count != MOE_PARAMS:
+        _fail(f"the MoE config has {count} parameters, not {MOE_PARAMS}")
+    out = {"router": router, "params": count}
+    if router == "topk":
+        out["step0"] = moe_step0(torch, cfg, state, tokens)
+    cap = _moe_capacity(cfg, TRAIN_SEQ)
+    step = make_lm_train_step(cfg=cfg)
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    losses, step_ms, loads, aux = [], [], [], []
+    for _ in range(MOE_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))   # syncs the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        sown = capture.last
+        for blk, val in sown.items():
+            if float(val["moe_expert_load"].max()) > TRAIN_BATCH * cap:
+                _fail(f"moe[{router}] {blk}: an expert took more than "
+                      f"{TRAIN_BATCH} x {cap} tokens")
+            if float(val["moe_slot_max"]) > 1:
+                _fail(f"moe[{router}] {blk}: a slot held two tokens")
+        loads.append({blk: val["moe_expert_load"].tolist()
+                      for blk, val in sown.items()})
+        aux.append({blk: float(val["moe_aux"].detach())
+                    for blk, val in sown.items() if "moe_aux" in val})
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for name in TRAIN_KERNELS:
+        if launches[name] != MOE_STEPS * cfg.layers:
+            _fail(f"moe[{router}]: {name} launched {launches[name]} times "
+                  f"in {MOE_STEPS} steps, not {cfg.layers} per step")
+    if not all(math.isfinite(x) for x in losses):
+        _fail(f"moe[{router}]: non-finite losses {losses}")
+    if not losses[-1] < losses[0]:
+        _fail(f"moe[{router}]: the loss did not fall: {losses}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.dim), generator=gen,
+                    device="cuda").to(cfg.dtype)
+    parts = moe_parts_ms(torch, timer, cfg, state.params["block_1"]["moe"],
+                         x)
+    steady = statistics.median(step_ms[1:])
+    out.update({
+        "capacity": cap, "losses": losses, "step_ms": step_ms,
+        "step_ms_median": steady,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady * 1e3,
+        "max_memory_allocated": peak, "launches": launches,
+        "aux_per_layer": aux, "expert_load_per_layer": loads,
+        "forward_parts_ms": parts,
+        "traced_step": {"step_ms": traced_ms, **device_breakdown(prof)}})
+    return out
+
+
+def moe_decode_check(torch, cfg, params, prompt) -> dict:
+    """Gate 6: the prefill's and first decode step's logits of the MoE
+    model (bf16, kernels) against the f32 plain path on the same weights,
+    at every position every MoE layer routed alike on both paths (the
+    routing is read by a wrapper around the decode path's MoE layer that
+    recomputes its dispatch); the share of differing token-layer
+    routings is printed and fails above MOE_ROUTING_FLIP_MAX."""
+    from kubeflow_tpu_torch.models import decoding
+    from kubeflow_tpu_torch.models.decoding import KVCache, forward_with_cache
+    from kubeflow_tpu_torch.models.transformer import moe_route
+
+    real, seen = decoding.moe_ffn, []
+
+    def recording(cfg_, p, x, sow=None):
+        with torch.no_grad():
+            seen.append(moe_route(cfg_, p, x)[0].sum(-1) > 0)  # (B, S, E)
+        return real(cfg_, p, x, sow)
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params32 = f32_params(torch, params)
+    routes, logits = {}, {}
+    decoding.moe_ffn = recording
+    try:
+        for name, run_cfg, run_params in (("kernel", cfg, params),
+                                          ("plain", cfg32, params32)):
+            seen.clear()
+            cache = KVCache.init(run_cfg, 1, len(prompt) + 8)
+            prefill, cache = forward_with_cache(run_cfg, run_params,
+                                                [prompt], cache)
+            pre_routes = list(seen)
+            seen.clear()
+            if name == "kernel":
+                nxt = prefill[:, -1].argmax(-1, keepdim=True)
+            step, _ = forward_with_cache(run_cfg, run_params, nxt, cache)
+            routes[name] = (torch.stack(pre_routes), torch.stack(seen))
+            logits[name] = (prefill.float(), step.float())
+    finally:
+        decoding.moe_ffn = real
+    torch.cuda.synchronize()
+    # (layers, 1, S, E) masks: a token-layer routing differs when its set
+    # of experts (after capacity drops) differs.
+    pre_diff = (routes["kernel"][0] != routes["plain"][0]).any(-1)[:, 0]
+    step_diff = (routes["kernel"][1] != routes["plain"][1]).any(-1)[:, 0]
+    routings = pre_diff.numel() + step_diff.numel()
+    differing = int(pre_diff.sum() + step_diff.sum())
+    same = ~pre_diff.any(0)                      # (S,) positions
+    errs = (logits["kernel"][0] - logits["plain"][0]).abs().amax(-1)[0]
+    prefill_err = float(errs[same].max()) if bool(same.any()) else None
+    step_same = not bool(step_diff.any())
+    step_err = (float((logits["kernel"][1] - logits["plain"][1]).abs().max())
+                if step_same else None)
+    share = differing / routings
+    if share > MOE_ROUTING_FLIP_MAX:
+        _fail(f"moe decode: {differing} of {routings} token-layer routings "
+              f"differ from the f32 plain path ({share:.4f} > "
+              f"{MOE_ROUTING_FLIP_MAX})")
+    for label, err in (("prefill", prefill_err), ("first step", step_err)):
+        if err is not None and not err <= TOL_LOGITS:
+            _fail(f"moe decode: {label} logits differ from the f32 plain "
+                  f"path by {err} > {TOL_LOGITS}")
+    if not all(torch.isfinite(t).all() for t in logits["kernel"]):
+        _fail("moe decode: non-finite logits")
+    return {"prompt": len(prompt), "routings": routings,
+            "routings_differing": differing, "share": share,
+            "positions_compared": int(same.sum()),
+            "prefill_logit_max_abs_err": prefill_err,
+            "step_logit_max_abs_err": step_err, "logit_tol": TOL_LOGITS}
+
+
+def moe_serve(torch) -> dict:
+    """A fresh bf16 init of the top-k MoE config through ``make_engine``,
+    which must return the ``GenerateFallbackEngine``: 4 requests with the
+    counters zeroed just before and read just after (every serving kernel
+    must launch), each stream equal to ``generate`` on the same request
+    bit for bit (gate 3), then gate 6."""
+    from kubeflow_tpu_torch.models.decoding import generate
+    from kubeflow_tpu_torch.models.transformer import init_params
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.serving import GenerateFallbackEngine, make_engine
+
+    cfg = moe_config(torch)
+    params = init_params(cfg, seed=0, device="cuda", dtype=cfg.dtype)
+    engine = make_engine(cfg, params, max_batch=8, max_len=2048)
+    if not isinstance(engine, GenerateFallbackEngine):
+        _fail(f"make_engine served the MoE config with {type(engine)}")
+    gen = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(0, cfg.vocab, (n,), generator=gen).tolist()
+               for n in MOE_SERVE_LENGTHS]
+    temps, seeds = list(MOE_SERVE_TEMPS), list(MOE_SERVE_SEEDS)
+    ttft = []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    events, wall = stream(torch, engine, prompts, temps, seeds,
+                          new_tokens=MOE_NEW_TOKENS, first_token_s=ttft)
+    launches = dict(_build.LAUNCHES)
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
+            _fail(f"moe serve: kernel {name} was never launched")
+    for i, prompt in enumerate(prompts):
+        got = next(e for e in events[i] if e.get("done"))["tokens"]
+        ref = generate(cfg, params, [prompt], MOE_NEW_TOKENS,
+                       temperature=temps[i], rng=seeds[i])[0].tolist()
+        if got != ref:
+            _fail(f"moe serve: request {i} differs from generate")
+    check = moe_decode_check(torch, cfg, params, prompts[0][:MOE_DECODE_PROMPT])
+    return {"engine": type(engine).__name__, "wall_s": wall,
+            "ttft_s": ttft, "requests": len(prompts),
+            "new_tokens": MOE_NEW_TOKENS, "launches": launches,
+            "decode_check": check,
+            "cycle_profile": engine.profiler.compact()}
+
+
+def moe_phase(torch, timer) -> dict:
+    """Both routers' training, then the fallback engine and MoE decode;
+    ``launches`` sums the three runs' counts."""
+    gen = torch.Generator(device="cuda").manual_seed(2027)
+    tokens = torch.randint(0, train_config(torch).vocab,
+                           (TRAIN_BATCH, TRAIN_SEQ),
+                           device="cuda", generator=gen)
+    runs = {}
+    for router in ("topk", "expert_choice"):
+        runs[router] = moe_train(torch, timer, router, tokens)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    serve = moe_serve(torch)
+    launches = {name: sum(run["launches"][name] for run in runs.values())
+                + serve["launches"][name] for name in serve["launches"]}
+    return {"phase": "moe", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "experts": MOE_EXPERTS, "every": MOE_EVERY, "runs": runs,
+            "serve": serve, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2179,6 +2862,11 @@ def main() -> int:
     cfg = flagship(torch)
     serve, params, outputs = serve_phase(torch, cfg)
     print(json.dumps(serve), flush=True)
+    spec = spec_phase(torch, cfg, params)
+    print(json.dumps(spec), flush=True)
+    spec_serve = spec_serve_phase(torch, cfg, params)
+    print(json.dumps(spec_serve), flush=True)
+    torch.cuda.empty_cache()
     requests = serve_requests(torch, cfg)
     int8, qparams = int8_phase(torch, cfg, params, requests)
     print(json.dumps(int8), flush=True)
@@ -2218,6 +2906,10 @@ def main() -> int:
         print(json.dumps(resnet_phase(torch, root)), flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    moe = moe_phase(torch, timer)
+    print(json.dumps(moe), flush=True)
     main_case = {"gemv": "tied_head", "qkv_rope": "flagship",
                  "decode_attention": "serve_shape",
                  "flash_attention": "causal", "flash_dq": "train_causal",
@@ -2230,7 +2922,10 @@ def main() -> int:
     # there takes an int8 weight); ``ckpt_launches`` the ckpt phase's
     # three runs'; ``pod_ckpt_launches`` the checkpoint-restored pod's
     # own, counted in its process over its two requests;
-    # ``long_launches`` the long phase's three runs'.
+    # ``long_launches`` the long phase's three runs'; ``spec_launches``
+    # the spec phase's four speculative runs', ``spec_serve_launches``
+    # the speculative engine run's, ``moe_launches`` the moe phase's two
+    # training runs' and its fallback engine run's.
     launches = {**serve["launches"], "flash_dq": train["launches"]["flash_dq"],
                 "flash_dkv": train["launches"]["flash_dkv"]}
     meta = {
@@ -2262,7 +2957,10 @@ def main() -> int:
             "train_launches": train["launches"][name],
             "ckpt_launches": ckpt["launches"][name],
             "pod_ckpt_launches": pod["launches"][name],
-            "long_launches": long["launches"][name]})
+            "long_launches": long["launches"][name],
+            "spec_launches": spec["launches"][name],
+            "spec_serve_launches": spec_serve["launches"][name],
+            "moe_launches": moe["launches"][name]})
     print(json.dumps({"kernels": summary}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

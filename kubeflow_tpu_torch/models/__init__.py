@@ -1,14 +1,15 @@
-"""The models of the PyTorch port: the LM's config, forward, losses
-(dense, and the vocab-tiled fused loss from ``ops/cross_entropy``) and
-train step (``transformer``); ResNet-18/50 (``resnet``); AdamW with a
+"""The models of the PyTorch port: the LM's config, forward (MoE blocks
+included), losses (dense, and the vocab-tiled fused loss from
+``ops/cross_entropy``, plus the MoE aux term) and train step
+(``transformer``); ResNet-18/50 (``resnet``); AdamW with a
 bf16 first moment and ``make_optimizer``'s Nesterov SGD (``optim``); the
 train state, ResNet's train and eval steps and the loops, the
 checkpointed one included (``train``); the checkpoint store in the
 reference's on-disk format (``checkpoint``); the flax weight and
 train-state converter (``convert``); KV-cache decode with stacked params
-and rolling chunks (``decoding``) and the continuous batcher
-(``serving``). MoE, pipelining and speculative decoding belong to later
-slices."""
+and rolling chunks (``decoding``), the continuous batcher with its
+speculative verify (``serving``) and self-speculative n-gram decoding
+(``speculative``). Pipelining belongs to a later slice."""
 
 from kubeflow_tpu_torch.models.convert import (
     params_from_jax,
@@ -37,6 +38,11 @@ from kubeflow_tpu_torch.models.resnet import (
     resnet_flops_per_image,
 )
 from kubeflow_tpu_torch.models.serving import BatchState, ContinuousBatcher
+from kubeflow_tpu_torch.models.speculative import (
+    NGramProposer,
+    SpecStats,
+    speculative_generate,
+)
 from kubeflow_tpu_torch.models.train import (
     RunReport,
     TrainState,
@@ -95,4 +101,7 @@ __all__ = [
     "stack_decode_params",
     "ContinuousBatcher",
     "BatchState",
+    "NGramProposer",
+    "SpecStats",
+    "speculative_generate",
 ]

@@ -8,7 +8,8 @@ state across the same way: the LM's (step, f32 params, AdamW moments)
 or ResNet's (step, f32 params, ``batch_stats``, the SGD trace), and
 :func:`resnet_variables_from_jax` ResNet's ``{"params",
 "batch_stats"}`` (HWIO conv kernels, which the port convolves with at
-use). Names and
+use). MoE blocks carry their ``moe`` subtree (router, expert weights) in
+the parameters and in AdamW's moments. Names and
 layouts stay as they are: a Dense ``kernel`` stays (in, out), which is
 what the GEMV and the fused QKV kernel contract, and the embedding
 stays (vocab, dim), which is what the tied head reads with
@@ -67,11 +68,18 @@ def params_from_jax(cfg: LMConfig, params_np: dict[str, Any], device=None,
         elif key == "final_norm":
             out[key] = {"scale": _tensor(sub["scale"], dev, torch.float32)}
         elif key.startswith("block_"):
-            if "moe" in sub:
-                raise NotImplementedError(
-                    "MoE blocks belong to a later slice of the port")
             blk = {}
             for name, leaf in sub.items():
+                if name == "moe":
+                    # The router stays f32 (the reference's f32 Dense);
+                    # the expert weights take the matmul dtype.
+                    blk[name] = {
+                        "router": {"kernel": _tensor(
+                            leaf["router"]["kernel"], dev, torch.float32)},
+                        "experts_up": _tensor(leaf["experts_up"], dev, dtype),
+                        "experts_down": _tensor(leaf["experts_down"], dev,
+                                                dtype)}
+                    continue
                 (leaf_name, value), = leaf.items()
                 leaf_dtype = torch.float32 if name in _F32_LEAVES else dtype
                 blk[name] = {leaf_name: _tensor(value, dev, leaf_dtype)}

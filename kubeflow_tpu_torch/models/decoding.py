@@ -45,7 +45,12 @@ Where the port differs from the reference, and why:
   two forms give the same numbers (on the card the stacked qkv feeds the
   fused QKV+RoPE kernel directly).
 
-MoE decode belongs to a later slice (ROADMAP A12) and raises here.
+- MoE decode (top-k routing) applies the training layer
+  (``transformer.moe_ffn``) to each (B, T) chunk, as the reference does:
+  at T = 1 every expert has one slot; a prefill drops over-capacity
+  tokens as training does. Expert-choice routing is not causal and is
+  refused. ``quantize_decode_params`` leaves the ``moe`` subtree as it
+  is and ``stack_decode_params`` refuses MoE, as in the reference.
 """
 
 from __future__ import annotations
@@ -57,7 +62,13 @@ from typing import Any
 import torch
 
 from kubeflow_tpu_torch._device import resolve_device
-from kubeflow_tpu_torch.models.transformer import LMConfig, gelu, rms_norm
+from kubeflow_tpu_torch.models.transformer import (
+    LMConfig,
+    gelu,
+    is_moe_block,
+    moe_ffn,
+    rms_norm,
+)
 from kubeflow_tpu_torch.ops.attention import (
     apply_rope,
     flash_attention,
@@ -601,11 +612,13 @@ def _attend_and_cache(cfg: LMConfig, q, k, v, ck, cv, pos: int, empty: bool,
 
 
 def _block_step(cfg: LMConfig, blk, x, ck, cv, pos: int, empty: bool,
-                rolling: bool, ks_buf=None, vs_buf=None):
+                rolling: bool, ks_buf=None, vs_buf=None, use_moe=False):
     """One block over a (B, T, D) chunk at global offset ``pos``,
     updating this layer's cache slices in place. Single-token steps take
     the fused QKV+RoPE kernel where wanted, and the out/down projections
-    carry their residual adds in the GEMV epilogue."""
+    carry their residual adds in the GEMV epilogue. An MoE block
+    (``use_moe``) runs the training layer on the chunk in place of
+    up/down (routing is position-independent; no aux is collected)."""
     b, t, _ = x.shape
     h = rms_norm(blk["RMSNorm_0"]["scale"], x)
     fused = None
@@ -634,8 +647,18 @@ def _block_step(cfg: LMConfig, blk, x, ck, cv, pos: int, empty: bool,
     out = out.transpose(1, 2).reshape(b, t, cfg.dim)
     x = _mm(out, blk["proj"]["kernel"], cfg.dtype, residual=x)
     h = rms_norm(blk["RMSNorm_1"]["scale"], x)
+    if use_moe:
+        return x + moe_ffn(cfg, blk["moe"], h)
     h = gelu(_mm(h, blk["up"]["kernel"], cfg.dtype).to(cfg.dtype))
     return _mm(h, blk["down"]["kernel"], cfg.dtype, residual=x)
+
+
+def _refuse_expert_choice(cfg: LMConfig) -> None:
+    if cfg.moe_experts and cfg.moe_router == "expert_choice":
+        raise NotImplementedError(
+            "expert-choice routing selects tokens ACROSS the sequence "
+            "(experts pick their top-C tokens), which is not causal - "
+            "autoregressive decode requires topk routing")
 
 
 def _params_device(params) -> torch.device:
@@ -650,9 +673,10 @@ def quantize_decode_params(cfg: LMConfig,
     int8 weights, bf16 activations, f32 accumulation), same nesting, so
     it goes wherever ``forward_with_cache``/``generate``/the engines take
     ``params``. q/k/v/proj/up/down quantise along axis 0 (their input
-    axis), the tied embedding along axis 1; norms stay f32. A
-    ``qkv_fused`` entry of the float weights is dropped: quantise first,
-    fuse after."""
+    axis), the tied embedding along axis 1; norms stay f32, and an MoE
+    block's ``moe`` subtree is left as it is (the MoE layer runs the
+    training layer). A ``qkv_fused`` entry of the float weights is
+    dropped: quantise first, fuse after."""
     quant = {"q_proj", "k_proj", "v_proj", "proj", "up", "down"}
     out: dict[str, Any] = {}
     for key, sub in params.items():
@@ -681,8 +705,7 @@ def forward_with_cache(cfg: LMConfig, params: dict[str, Any], tokens,
     ((B, 1, vocab)), what a prefill-then-sample caller needs. ``params``
     is the per-layer dict or a :class:`StackedDecodeParams`."""
     dev = resolve_device(device)
-    if cfg.moe_experts:
-        raise NotImplementedError("MoE decode belongs to a later slice")
+    _refuse_expert_choice(cfg)
     if isinstance(params, StackedDecodeParams):
         params = _layer_views(cfg, params)
     if _params_device(params) != dev or cache.k.device != dev:
@@ -701,7 +724,8 @@ def forward_with_cache(cfg: LMConfig, params: dict[str, Any], tokens,
             cfg, params[f"block_{i}"], x, cache.k[i], cache.v[i], pos,
             cache.empty, cache.rolling,
             ks_buf=cache.k_scale[i] if quantized else None,
-            vs_buf=cache.v_scale[i] if quantized else None)
+            vs_buf=cache.v_scale[i] if quantized else None,
+            use_moe=is_moe_block(cfg, i))
     x = rms_norm(params["final_norm"]["scale"], x)
     if last_logits_only:
         x = x[:, -1:]
@@ -740,8 +764,7 @@ def generate(cfg: LMConfig, params: dict[str, Any], prompt,
     :class:`StackedDecodeParams`, can as well be passed directly."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
-    if cfg.moe_experts:
-        raise NotImplementedError("MoE decode belongs to a later slice")
+    _refuse_expert_choice(cfg)
     if temperature > 0.0 and rng is None:
         raise ValueError("temperature > 0 samples; pass rng (an int seed or "
                          "a torch.Generator) - a fixed default would return "

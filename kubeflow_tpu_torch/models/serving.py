@@ -19,11 +19,19 @@ that finishes is refilled from the queue without stopping the others.
   prefill and one row per decode step, in ``generate``'s order, so a
   request's tokens equal ``generate(..., rng=seed)``'s.
 
+- Speculative verification: :func:`verify_step` scores a (B, T) chunk
+  per slot (the pending token and T - 1 drafts) and writes its K/V in
+  place at rows ``pos[b] .. pos[b] + T - 1``; :func:`commit_verify`
+  then advances ``pos``/``last`` by what the host accepted. Sampled
+  slots bring one Gumbel row per position, (B, T, vocab), from their
+  request's queue (``models/speculative.py`` ``NoiseQueue``) in place of
+  the reference's per-slot key windows.
+
 Parity contract: every request's output equals single-request
 ``generate`` on the same device and dtype; slot assignment, admission
-order, neighbours and chunk size do not change it. Speculative
-verification (``verify_step``/``commit_verify``) belongs to a later
-slice.
+order, neighbours and chunk size do not change it. MoE models are
+refused with ``NotImplementedError`` (the engine then serves them
+through serialized ``generate``), as in the reference.
 """
 
 from __future__ import annotations
@@ -186,7 +194,8 @@ def decode_step(cfg: LMConfig, params: dict[str, Any], state: BatchState,
     garbage the caller ignores."""
     if cfg.moe_experts:
         raise NotImplementedError("continuous batching serves dense-FFN "
-                                  "models; MoE decode is a later slice")
+                                  "models (MoE decode runs through "
+                                  "generate())")
     b = state.last.shape[0]
     emb = params["embed"]["embedding"]
     x = embed_tokens(cfg, emb, state.last.long()[:, None])  # (B, 1, D)
@@ -234,6 +243,127 @@ def decode_step(cfg: LMConfig, params: dict[str, Any], state: BatchState,
     state.pos += state.active.to(torch.int32)
     state.last.copy_(torch.where(state.active, nxt, state.last))
     return state, nxt
+
+
+def _batched_chunk_attention(cfg: LMConfig, q, ck, cv, pos, ks=None,
+                             vs=None):
+    """Multi-token masked read with PER-SLOT base positions, the verify
+    step's ``_cached_attention``: q (B, H, T, hd) holds T consecutive
+    tokens per row from global position ``pos[b]``; ck/cv (B, Hkv, cap,
+    hd) already hold the chunk's writes. Row (b, t) attends to cols <=
+    pos[b] + t (within the window); ``ks``/``vs`` dequantise an int8
+    cache per row. Operands in the compute dtype, f32 accumulation."""
+    b, h, t, hd = q.shape
+    hkv = ck.shape[1]
+    compute = q.dtype
+    qg = q.reshape(b, hkv, h // hkv, t, hd).float()
+    s = torch.einsum("bkgtd,bkld->bkgtl", qg,
+                     ck.to(compute).float()) * hd ** -0.5
+    if ks is not None:
+        s = s * ks[..., 0][:, :, None, None, :]
+    rows = (pos.long()[:, None]
+            + torch.arange(t, device=q.device)[None, :])[:, None, None, :,
+                                                         None]
+    cols = torch.arange(ck.shape[2], device=q.device)
+    keep = cols <= rows
+    if cfg.attn_window is not None:
+        keep = keep & (cols > rows - cfg.attn_window)
+    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    if vs is not None:
+        w = w * vs[..., 0][:, :, None, None, :]
+    out = torch.einsum("bkgtl,bkld->bkgtd", w.to(compute).float(),
+                       cv.to(compute).float())
+    return out.reshape(b, h, t, hd).to(q.dtype)
+
+
+def _write_rows(cache_layer, new, start) -> None:
+    """cache_layer (B, Hkv, cap, hd) <- new (B, Hkv, T, hd) at rows
+    ``start[b] .. start[b] + T - 1``, in place."""
+    b, _, t, _ = new.shape
+    rows = torch.arange(b, device=cache_layer.device)[:, None]
+    cols = start.long()[:, None] + torch.arange(t, device=start.device)
+    cache_layer[rows, :, cols] = new.transpose(1, 2)
+
+
+@torch.no_grad()
+def verify_step(cfg: LMConfig, params: dict[str, Any], state: BatchState,
+                tokens, noise=None, rolling: bool = False):
+    """Score a (B, T) chunk per slot in one forward: the speculative
+    serving step. ``tokens[b, 0]`` is the slot's pending token
+    (``state.last``) and ``tokens[b, 1:]`` its T - 1 drafts; ``noise``
+    (B, T, vocab) holds each position's Gumbel row for sampled slots
+    (zeros elsewhere; greedy slots ignore it). Returns ``(state, cand (B,
+    T))``: ``cand[b, i]`` is the token the model emits after ``tokens[b,
+    :i + 1]``, the value a chain of i + 1 ``decode_step``s would sample.
+    The chunk's K/V are written in place at rows ``pos[b] .. pos[b] + T -
+    1``; ``pos`` and ``last`` do NOT move: the host decides the accepted
+    prefix and :func:`commit_verify` advances them (rows past it are
+    masked by the causal read and overwritten by the next verify, which
+    starts at the committed position).
+
+    Linear slots only: a rolling ring cannot rewind a rejected write."""
+    if cfg.moe_experts:
+        raise NotImplementedError(
+            "continuous batching serves dense-FFN models (MoE decode runs "
+            "through generate())")
+    if rolling:
+        raise ValueError("verify_step requires linear slots (a rolling ring "
+                         "cannot rewind a rejected draft's write)")
+    tokens = torch.as_tensor(tokens, device=state.k.device).long()
+    b, t = tokens.shape
+    emb = params["embed"]["embedding"]
+    x = embed_tokens(cfg, emb, tokens)  # (B, T, D)
+    hq, hkv, hd = cfg.heads, cfg.num_kv_heads, cfg.head_dim
+    # Inactive slots' stale positions are clamped so their (ignored)
+    # writes stay inside the buffer, as dynamic_update_slice clamps.
+    wpos = state.pos.clamp(max=state.k.shape[3] - t)
+    for i in range(cfg.layers):
+        blk = params[f"block_{i}"]
+        h = rms_norm(blk["RMSNorm_0"]["scale"], x)
+
+        def proj(name, n):
+            y = _mm(h, blk[name]["kernel"], cfg.dtype).to(cfg.dtype)
+            return y.reshape(b, t, n, hd).transpose(1, 2)
+
+        q = apply_rope(proj("q_proj", hq), offset=state.pos)
+        k = apply_rope(proj("k_proj", hkv), offset=state.pos)
+        v = proj("v_proj", hkv)
+        ks_buf = vs_buf = None
+        if state.quantized:
+            k, k_s = _quantize_rows(k)
+            v, v_s = _quantize_rows(v)
+            ks_buf, vs_buf = state.k_scale[i], state.v_scale[i]
+            _write_rows(ks_buf, k_s, wpos)
+            _write_rows(vs_buf, v_s, wpos)
+        _write_rows(state.k[i], k, wpos)
+        _write_rows(state.v[i], v, wpos)
+        out = _batched_chunk_attention(cfg, q, state.k[i], state.v[i],
+                                       state.pos, ks=ks_buf, vs=vs_buf)
+        out = out.transpose(1, 2).reshape(b, t, cfg.dim)
+        x = _mm(out, blk["proj"]["kernel"], cfg.dtype, residual=x)
+        h = rms_norm(blk["RMSNorm_1"]["scale"], x)
+        h = gelu(_mm(h, blk["up"]["kernel"], cfg.dtype).to(cfg.dtype))
+        x = _mm(h, blk["down"]["kernel"], cfg.dtype, residual=x)
+    x = rms_norm(params["final_norm"]["scale"], x)
+    logits = _mm(x.to(cfg.dtype), emb, cfg.dtype, transpose_w=True)
+    # One row per draw: generate()'s sampling at the slot's temperature.
+    flat_noise = None if noise is None else noise.reshape(b * t, -1)
+    cand = _sample(logits.reshape(b * t, -1),
+                   state.temp.repeat_interleave(t), flat_noise)
+    return state, cand.reshape(b, t)
+
+
+def commit_verify(state: BatchState, accepted, last) -> BatchState:
+    """Advance per-slot positions by the host-decided ``accepted`` counts
+    ((B,) int, 0 for untouched slots) and point ``last`` at the newest
+    emitted token, in place: the other half of the verify/commit pair."""
+    accepted = torch.as_tensor(accepted, dtype=torch.int32,
+                               device=state.pos.device)
+    last = torch.as_tensor(last, dtype=torch.int32, device=state.pos.device)
+    state.pos += accepted
+    state.last.copy_(torch.where(accepted > 0, last, state.last))
+    return state
 
 
 def decode_chunk(cfg: LMConfig, params: dict[str, Any], state: BatchState,
@@ -293,8 +423,8 @@ class ContinuousBatcher:
                  device=None):
         if cfg.moe_experts:
             raise NotImplementedError(
-                "continuous batching serves dense-FFN models; MoE decode "
-                "belongs to a later slice of the port")
+                "continuous batching serves dense-FFN models (MoE decode "
+                "runs through generate())")
         if step_chunk < 1:
             raise ValueError("step_chunk must be >= 1")
         self.device = resolve_device(device)

@@ -21,9 +21,13 @@ template):
   ``KFT_SERVING_PORT`` — HTTP port (default 8800).
 - ``KFT_SERVING_PREFILL_CHUNK`` — chunked-prefill admission threshold
   (unset = monolithic prefill).
-- ``KFT_SERVING_SPEC_NGRAM`` — "1"/"true" asks for self-speculative
-  n-gram decoding, which ``make_engine`` refuses until it is ported
-  (ROADMAP A6).
+- ``KFT_SERVING_SPEC_NGRAM`` — "1"/"true" enables self-speculative
+  n-gram decoding (linear slots only; a rolling model warns and serves
+  lockstep). ``KFT_SERVING_SPEC_DRAFT`` (default 8) drafted tokens per
+  verify, ``KFT_SERVING_SPEC_NGRAM_N`` (default 3) the longest n-gram
+  context.
+- An MoE config (``moe_experts`` > 0) starts on the serialized
+  ``generate()`` fallback engine (the batcher refuses MoE decode).
 - ``KFT_AUTOPILOT`` — "0" disables the SLO autopilot (default on: the
   gateway admission actuator tightens max_pending / prefill_per_cycle
   while TTFT/ITL burn is critical and restores them on resolve).
@@ -138,6 +142,8 @@ def main(argv=None, device=None) -> None:
         eos_token=int(eos) if eos else None,
         prefill_chunk_tokens=int(chunk) if chunk else None,
         spec_ngram=spec,
+        spec_draft=int(env.get("KFT_SERVING_SPEC_DRAFT", "8")),
+        spec_ngram_n=int(env.get("KFT_SERVING_SPEC_NGRAM_N", "3")),
         device=device,
     )
     autopilot = None

@@ -24,13 +24,22 @@ contract and adds the serving mechanics:
 - **Hot model swap**: :meth:`~_EngineBase.swap_params` stages new
   parameters; the scheduler applies them between cycles after the
   in-flight slots drain.
+- **Self-speculative n-gram decoding** (opt-in, ``spec_ngram``): every
+  active slot drafts ``spec_draft`` tokens from its own prompt and output
+  (``models/speculative.py`` ``NGramProposer``) and ONE batched
+  ``verify_step`` scores them all; each slot keeps its longest matching
+  prefix plus the model's correction. A sampled request keeps a queue of
+  Gumbel rows (``NoiseQueue``): a verify takes ``spec_draft + 1`` of
+  them and pops the rows of the tokens it emitted, so its stream equals
+  ``generate(rng=seed)``. Linear slots only.
+
+:class:`GenerateFallbackEngine` serves the same interface through
+serialized ``generate()`` calls for models the batcher refuses (MoE), one
+request at a time, tokens still streamed to the sink and metered.
 
 Sinks receive ``{"token": t}`` per generated token and a final
 ``{"done": True, "reason": ..., "tokens": [...], "cache_hit": ...}``.
 Sink callbacks run on the scheduler thread and must not block.
-
-Self-speculative n-gram decoding and the serialized ``generate()``
-fallback for MoE models belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -44,18 +53,24 @@ from typing import Any, Callable
 
 import torch
 
+from kubeflow_tpu_torch._device import resolve_device
 from kubeflow_tpu_torch.models.decoding import (
     KVCache,
     forward_with_cache,
     fuse_qkv_params,
+    generate,
 )
 from kubeflow_tpu_torch.models.serving import (
     BatchState,
     ContinuousBatcher,
     _sample_one,
+    check_request_contract,
+    commit_verify,
     prefill_slot,
     splice_slot,
+    verify_step,
 )
+from kubeflow_tpu_torch.models.speculative import NGramProposer, NoiseQueue
 from kubeflow_tpu_torch.models.transformer import LMConfig
 from kubeflow_tpu_torch.obs.metrics import BucketHistogram
 from kubeflow_tpu_torch.obs.profile import PhaseProfiler
@@ -199,9 +214,11 @@ class _EngineBase:
         self.profiler = profiler if profiler is not None else PhaseProfiler()
         self.recorder = recorder if recorder is not None else FlightRecorder()
         # The full phase set is pre-created: readers iterate this dict
-        # while the scheduler observes, so it never resizes.
+        # while the scheduler observes, so it never resizes (verify and
+        # commit stay at zero outside speculative mode).
         self.cycle_seconds = {name: BucketHistogram() for name in
-                              ("admit", "prefill", "decode")}
+                              ("admit", "prefill", "decode", "verify",
+                               "commit")}
         self.occupancy = 0
         self.slots_total = 0
         self.cycles_total = 0
@@ -295,8 +312,10 @@ class StreamingBatcher(_EngineBase, ContinuousBatcher):
                  eos_token: int | None = None, step_chunk: int = 8,
                  quantize_cache: bool = False, prefill_per_cycle: int = 2,
                  max_pending: int = 64, prefix_cache_size: int = 8,
-                 prefill_chunk_tokens: int | None = None, profiler=None,
-                 recorder=None, device=None):
+                 prefill_chunk_tokens: int | None = None,
+                 spec_ngram: bool = False, spec_draft: int = 8,
+                 spec_ngram_n: int = 3, spec_lookback: int = 4096,
+                 profiler=None, recorder=None, device=None):
         ContinuousBatcher.__init__(
             self, cfg, params, max_batch, max_len, eos_token=eos_token,
             step_chunk=step_chunk, quantize_cache=quantize_cache,
@@ -306,6 +325,26 @@ class StreamingBatcher(_EngineBase, ContinuousBatcher):
         self.slots_total = max_batch
         if prefill_per_cycle < 1:
             raise ValueError("prefill_per_cycle must be >= 1")
+        if spec_ngram and self.rolling:
+            # A rejected draft's ring write has already evicted the slot
+            # it landed in: there is nothing to rewind to.
+            raise ValueError(
+                "speculative decoding requires linear slots "
+                "(cfg.attn_window makes this engine rolling)")
+        self.spec_ngram = spec_ngram
+        self.spec_draft = spec_draft
+        self.spec_ngram_n = spec_ngram_n
+        # The proposer scans at most this many trailing history tokens a
+        # slot a cycle, so host work does not grow with every token.
+        self.spec_lookback = spec_lookback
+        self.spec_verifies_total = 0
+        self.spec_drafted_total = 0
+        self.spec_accepted_total = 0
+        if spec_ngram:
+            self._proposer = NGramProposer(n=spec_ngram_n, k=spec_draft)
+            # Verify chunks write up to spec_draft rows past the accepted
+            # prefix; the admission bound reserves the overshoot.
+            self.reserve_slack = max(self.step_chunk, spec_draft)
         if prefill_chunk_tokens is not None:
             if prefill_chunk_tokens < 1:
                 raise ValueError("prefill_chunk_tokens must be >= 1")
@@ -387,20 +426,100 @@ class StreamingBatcher(_EngineBase, ContinuousBatcher):
                         or self._pending_params is not None)
             return busy or self._partial is not None
         started = time.monotonic()
-        for row in self._decode():
-            for slot, req in enumerate(self._slots):
-                if req is None or req["done"]:
-                    continue
-                token = int(row[slot])
-                self._results[req["id"]].append(token)
-                self._emit(req, {"token": token})
-                self._check_done(req, token)
+        if self.spec_ngram:
+            self._spec_decode_cycle()
+        else:
+            for row in self._decode():
+                for slot, req in enumerate(self._slots):
+                    if req is None or req["done"]:
+                        continue
+                    token = int(row[slot])
+                    self._results[req["id"]].append(token)
+                    self._emit(req, {"token": token})
+                    self._check_done(req, token)
         self._observe_phase("decode", time.monotonic() - started)
         for slot, req in enumerate(self._slots):
             if req is not None and req["done"]:
                 self._finish(req)
                 self._free(slot)
         return True
+
+    # ------------------------------------------- speculative decoding
+    def _noise_queue(self, req: dict) -> NoiseQueue:
+        """The request's queue of decode-token noise rows (its budget - 1
+        draws, in ``generate``'s order), made at its first verify."""
+        if "noise_q" not in req:
+            req["noise_q"] = NoiseQueue(req["gen"], self.cfg.vocab,
+                                        req["budget"] - 1, self.device)
+        return req["noise_q"]
+
+    def _spec_decode_cycle(self) -> None:
+        """One speculative verify for every active slot: the host proposer
+        drafts per-slot continuations from prompt + emitted history, ONE
+        batched ``verify_step`` scores ``spec_draft + 1`` positions a
+        slot, and each slot keeps its longest matching prefix plus the
+        model's correction (at least one token a cycle). A sampled slot's
+        noise rows come from its queue; only the emitted tokens' rows are
+        popped, the rest wait for the next verify."""
+        verify_started = time.monotonic()
+        t = self.spec_draft + 1
+        rows, drafts, noise = [], [], None
+        for slot, req in enumerate(self._slots):
+            if req is None or req["done"]:
+                rows.append([0] * t)
+                drafts.append(None)
+                continue
+            emitted_toks = self._results[req["id"]]
+            keep = self.spec_lookback
+            if len(emitted_toks) >= keep:
+                history = emitted_toks[-keep:]
+            else:
+                history = (req["prompt"][len(emitted_toks) - keep:]
+                           + emitted_toks)
+            draft = self._proposer.propose(history)
+            rows.append([history[-1]] + draft)
+            drafts.append(draft)
+            if req["gen"] is not None:
+                if noise is None:
+                    noise = torch.zeros((len(self._slots), t, self.cfg.vocab),
+                                        device=self.device)
+                noise[slot] = self._noise_queue(req).window(t)
+        tokens = torch.tensor(rows, dtype=torch.long, device=self.device)
+        self.state, cand = verify_step(self.cfg, self.params, self.state,
+                                       tokens, noise)
+        cand = cand.cpu().tolist()   # (B, t): the one synchronisation
+        # verify = draft build + the batched scoring (host-synced); the
+        # accept/emit loop below rides the decode total.
+        self._observe_phase("verify", time.monotonic() - verify_started)
+        accepted = [0] * len(self._slots)
+        lasts = [0] * len(self._slots)
+        self.spec_verifies_total += 1
+        for slot, req in enumerate(self._slots):
+            if req is None or req["done"]:
+                continue
+            draft, row = drafts[slot], cand[slot]
+            match = 0
+            while match < self.spec_draft and row[match] == draft[match]:
+                match += 1
+            self.spec_drafted_total += self.spec_draft
+            emitted = 0
+            for token in row[:match + 1]:
+                self._results[req["id"]].append(token)
+                self._emit(req, {"token": token})
+                emitted += 1
+                self._check_done(req, token)
+                if req["done"]:
+                    break
+            if req["gen"] is not None:
+                self._noise_queue(req).pop(emitted)
+            accepted[slot] = emitted
+            lasts[slot] = row[emitted - 1]
+            # Accepted drafts among what was emitted: a cycle cut short by
+            # eos or the budget emitted matching drafts only.
+            self.spec_accepted_total += min(emitted, match)
+        commit_started = time.monotonic()
+        self.state = commit_verify(self.state, accepted, lasts)
+        self._observe_phase("commit", time.monotonic() - commit_started)
 
     def _admit_capped(self) -> int:
         admitted = 0
@@ -575,39 +694,137 @@ class StreamingBatcher(_EngineBase, ContinuousBatcher):
         raise RuntimeError("engine did not drain")
 
 
+class GenerateFallbackEngine(_EngineBase):
+    """Serialized ``generate()`` engine for models the batcher refuses
+    (MoE decode): one request at a time on the scheduler thread, no slots
+    and no interleaving, but the same gateway-facing surface (bounded
+    inbox, streamed sinks, staged swap, metered cycles). Time to first
+    token degrades to the whole generation's latency: the documented cost
+    of the fallback. Runs on the card unless ``device="cpu"``."""
+
+    batched = False
+    spec_ngram = False
+
+    def __init__(self, cfg: LMConfig, params, max_len: int,
+                 eos_token: int | None = None, max_pending: int = 64,
+                 profiler=None, recorder=None, device=None):
+        super().__init__(max_pending=max_pending, profiler=profiler,
+                         recorder=recorder)
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self.eos = eos_token
+        self.device = resolve_device(device)
+        self.swaps_total = 0
+        self.draining = False
+        self.prefix_cache = None
+        self._backlog: deque = deque()
+        self.slots_total = 1  # serialized: one request "slot" at a time
+
+    def submit_stream(self, prompt, sink: Sink, max_new_tokens: int = 128,
+                      temperature: float = 0.0, rng=None) -> int:
+        prompt = check_request_contract(prompt, max_new_tokens, temperature,
+                                        rng)
+        if len(prompt) + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds max_len {self.max_len}")
+        req = {"prompt": prompt, "budget": max_new_tokens,
+               "temp": float(temperature), "rng": rng, "sink": sink}
+        return self._enqueue(req)
+
+    def step_cycle(self) -> bool:
+        with self.profiler.activate() as phases:
+            worked = self._cycle()
+        if worked:
+            self._record_cycle(phases, self.pending())
+        return worked
+
+    def _cycle(self) -> bool:
+        admit_started = time.monotonic()
+        admitted = False
+        for req in self._take_inbox():
+            self._backlog.append(req)
+            admitted = True
+        if admitted:
+            self._observe_phase("admit", time.monotonic() - admit_started)
+        staged = self._staged_params()
+        if staged is not None:
+            # No slots to drain: between requests IS drained.
+            self.params = staged
+            self._consume_staged(staged)
+            self.swaps_total += 1
+        if not self._backlog:
+            self.occupancy = 0
+            return False
+        req = self._backlog.popleft()
+        self._note_admitted()
+        self.occupancy = 1
+        started = time.monotonic()
+        out = generate(self.cfg, self.params, [req["prompt"]], req["budget"],
+                       temperature=req["temp"], rng=req["rng"],
+                       device=self.device)
+        tokens = out[0].tolist()
+        if self.eos is not None and self.eos in tokens:
+            tokens = tokens[:tokens.index(self.eos) + 1]
+        self._observe_phase("decode", time.monotonic() - started)
+        for token in tokens:
+            self._emit(req, {"token": token})
+        reason = ("eos" if (self.eos is not None and tokens
+                            and tokens[-1] == self.eos) else "length")
+        self._emit(req, {"done": True, "reason": reason, "tokens": tokens,
+                         "cache_hit": False})
+        self.occupancy = 0
+        return True
+
+    def drain(self, max_cycles: int = 10_000) -> None:
+        for _ in range(max_cycles):
+            if not self.step_cycle():
+                return
+        raise RuntimeError("engine did not drain")
+
+
 def make_engine(cfg: LMConfig, params, max_batch: int = 8,
                 max_len: int = 2048, eos_token: int | None = None,
                 step_chunk: int = 8, quantize_cache: bool = False,
                 prefill_per_cycle: int = 2, max_pending: int = 64,
                 prefix_cache_size: int = 8,
                 prefill_chunk_tokens: int | None = None,
-                spec_ngram: bool = False, device=None):
-    """The streaming batcher for this model, on the card unless
-    ``device="cpu"``. A chunked-prefill request on a rolling
-    (windowed-attention) model degrades to monolithic prefill instead of
-    refusing to serve, as in the reference."""
-    if spec_ngram:
-        raise NotImplementedError(
-            "speculative n-gram decoding (models/speculative.py) belongs to "
-            "a later slice of the port; serve with spec_ngram=False")
-
-    def build(chunk):
+                spec_ngram: bool = False, spec_draft: int = 8,
+                spec_ngram_n: int = 3, device=None):
+    """The best engine the model supports, on the card unless
+    ``device="cpu"``: the streaming batcher, or the serialized
+    ``generate()`` fallback when the batcher refuses the config (MoE
+    decode). A chunked-prefill or speculative request on a rolling
+    (windowed-attention) model degrades, to monolithic prefill and
+    lockstep decode, instead of refusing to serve, as in the reference: a
+    tuning flag must not crash a pod that serves fine without it."""
+    def build(chunk, spec):
         return StreamingBatcher(
             cfg, params, max_batch=max_batch, max_len=max_len,
             eos_token=eos_token, step_chunk=step_chunk,
             quantize_cache=quantize_cache,
             prefill_per_cycle=prefill_per_cycle, max_pending=max_pending,
             prefix_cache_size=prefix_cache_size, prefill_chunk_tokens=chunk,
-            device=device)
+            spec_ngram=spec, spec_draft=spec_draft,
+            spec_ngram_n=spec_ngram_n, device=device)
 
     try:
-        return build(prefill_chunk_tokens)
-    except ValueError as exc:
-        if "linear slots" not in str(exc) or prefill_chunk_tokens is None:
-            raise
-        log.warning("chunked prefill unavailable (%s); serving with "
-                    "monolithic prefill", exc)
-        return build(None)
+        try:
+            return build(prefill_chunk_tokens, spec_ngram)
+        except ValueError as exc:
+            if "linear slots" not in str(exc) or not (
+                    prefill_chunk_tokens is not None or spec_ngram):
+                raise
+            log.warning("linear-slot feature unavailable (%s); serving with "
+                        "monolithic prefill / lockstep decode", exc)
+            return build(None, False)
+    except NotImplementedError as exc:
+        log.warning("continuous batching unavailable (%s); serving through "
+                    "the serialized generate() fallback", exc)
+        return GenerateFallbackEngine(cfg, params, max_len=max_len,
+                                      eos_token=eos_token,
+                                      max_pending=max_pending, device=device)
 
 
 class Scheduler:

@@ -888,3 +888,103 @@ def test_resnet18_train_step_on_the_card_matches_the_cpu(card):
             err = float((got[k] - want[k]).norm()) / max(
                 float(want[k].norm()), floor)
             assert err <= 1e-4, (k, err)
+
+
+# A bf16 path on the card against the f32 plain path on the same weights:
+# the chip smoke's TOL_LOGITS.
+TOL_LOGITS_F32 = 0.25
+
+
+def _plain_f32_logits(cfg, params, tokens):
+    """The f32 plain path's logits (1, S, vocab) for one token row."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models import build_lm
+    from kubeflow_tpu_torch.models.optim import tree_map
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    with torch.no_grad():
+        return build_lm(cfg32, use_flash=False)(
+            tree_map(lambda t: t.float(), params),
+            torch.tensor([tokens], device="cuda"))
+
+
+def test_speculative_decoding_on_the_card(card):
+    """speculative_generate and the spec engine on a tiny bf16 model: the
+    prefill launches the flash kernel, and every emitted greedy token is
+    within TOL_LOGITS_F32 of the f32 plain path's best at its position
+    (the verify chunk's dense products and generate's single-token
+    kernels round differently on the card, so equality with generate is
+    not required here; the CPU tests pin it)."""
+    from kubeflow_tpu_torch.models.speculative import speculative_generate
+    from kubeflow_tpu_torch.models.transformer import LMConfig, init_params
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.serving import make_engine
+
+    cfg = LMConfig(vocab=512, layers=2, dim=256, heads=4, kv_heads=2,
+                   dtype=torch.bfloat16)
+    params = init_params(cfg, seed=2, device="cuda", dtype=torch.bfloat16)
+    prompts = [[(11 * i) % 97 for i in range(n)] * 3 for n in (20, 33)]
+    _build.reset_launches()
+    out, stats = speculative_generate(cfg, params, [prompts[0]], 24,
+                                      return_stats=True)
+    assert _build.LAUNCHES["flash_attention"] == cfg.layers
+    assert stats.verify_calls >= 1
+    engine = make_engine(cfg, params, max_batch=2, max_len=256,
+                         spec_ngram=True, spec_draft=4)
+    done = {}
+    for i, p in enumerate(prompts):
+        engine.submit_stream(p, lambda e, i=i: done.__setitem__(i, e)
+                             if e.get("done") else None, max_new_tokens=16)
+    engine.drain()
+    assert engine.cycle_seconds["verify"].count >= 1
+    streams = [(prompts[0], out[0].tolist())] + [
+        (p, done[i]["tokens"]) for i, p in enumerate(prompts)]
+    for prompt, toks in streams:
+        logits = _plain_f32_logits(cfg, params, prompt + toks)[0]
+        rows = logits[len(prompt) - 1:len(prompt) - 1 + len(toks)]
+        picked = rows.gather(1, torch.tensor(toks, device="cuda")[:, None])
+        gap = float((rows.max(-1).values - picked[:, 0]).max())
+        assert gap <= TOL_LOGITS_F32, gap
+
+
+def test_moe_decode_and_the_fallback_engine_on_the_card(card):
+    """A tiny bf16 top-2 MoE model decodes on the card through every
+    serving kernel (the dense blocks' GEMVs, the fused QKV+RoPE,
+    flash-decode, the flash prefill); its first decode step's logits
+    agree with the same call on CPU copies (every wrapper's twin) within
+    TOL_LOGITS_TWINS; the fallback engine streams generate()'s tokens."""
+    from kubeflow_tpu_torch.models import decoding as tdec
+    from kubeflow_tpu_torch.models.optim import tree_map
+    from kubeflow_tpu_torch.models.transformer import LMConfig, init_params
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.serving import GenerateFallbackEngine, make_engine
+
+    cfg = LMConfig(vocab=512, layers=2, dim=256, heads=4, moe_experts=4,
+                   moe_top_k=2, dtype=torch.bfloat16)
+    params = init_params(cfg, seed=3, device="cuda", dtype=torch.bfloat16)
+    cpu = tree_map(lambda t: t.cpu(), params)
+    prompt = [[(5 * i + 1) % cfg.vocab for i in range(40)]]
+
+    def first_decode_logits(p, device):
+        cache = tdec.KVCache.init(cfg, 1, 48, device=device)
+        logits, cache = tdec.forward_with_cache(cfg, p, prompt, cache,
+                                                last_logits_only=True,
+                                                device=device)
+        nxt = logits[:, -1].argmax(-1, keepdim=True)
+        return tdec.forward_with_cache(cfg, p, nxt, cache, device=device)[0]
+
+    _build.reset_launches()
+    want = tdec.generate(cfg, params, prompt, 8)
+    serving = ("flash_attention", "gemv", "qkv_rope", "decode_attention")
+    assert all(_build.LAUNCHES[n] > 0 for n in serving), _build.LAUNCHES
+    card_logits = first_decode_logits(params, "cuda").cpu()
+    cpu_logits = first_decode_logits(cpu, "cpu")
+    assert float((card_logits - cpu_logits).abs().max()) <= TOL_LOGITS_TWINS
+    engine = make_engine(cfg, params, max_len=256)
+    assert isinstance(engine, GenerateFallbackEngine)
+    done = {}
+    engine.submit_stream(prompt[0], lambda e: done.update(e)
+                         if e.get("done") else None, max_new_tokens=8)
+    engine.drain()
+    assert done["tokens"] == want[0].tolist()

@@ -40,6 +40,7 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import kubeflow_tpu_torch, kubeflow_tpu_torch.serving\n"
         "import kubeflow_tpu_torch.models, kubeflow_tpu_torch.ops\n"
+        "import kubeflow_tpu_torch.models.speculative\n"
         "import kubeflow_tpu_torch.obs, chip_smoke\n"
         "import kubeflow_tpu_torch.serving.gateway\n"
         "import kubeflow_tpu_torch.serving.__main__\n"

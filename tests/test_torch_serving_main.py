@@ -136,11 +136,37 @@ def test_pod_logs_in_the_port_tree_when_run_with_dash_m():
 
 def test_main_passes_spec_ngram_to_make_engine(monkeypatch,
                                                restore_port_logger):
+    """The spec flag and its two knobs reach ``make_engine`` as the
+    reference passes them (the engine itself is held by the pod test
+    below and by tests/test_torch_speculative.py)."""
+    from kubeflow_tpu_torch.serving import engine as engine_mod
+
     monkeypatch.delenv("KFT_SERVING_MODEL_DIR", raising=False)
     monkeypatch.setenv("KFT_SERVING_CONFIG", json.dumps(TINY))
     monkeypatch.setenv("KFT_SERVING_SPEC_NGRAM", "true")
-    with pytest.raises(NotImplementedError, match="speculative"):
+    monkeypatch.setenv("KFT_SERVING_SPEC_DRAFT", "5")
+    monkeypatch.setenv("KFT_SERVING_SPEC_NGRAM_N", "2")
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_make_engine(cfg, params, **kw):
+        seen.update(kw)
+        raise Stop
+
+    monkeypatch.setattr(engine_mod, "make_engine", fake_make_engine)
+    with pytest.raises(Stop):
         main(device="cpu")
+    assert (seen["spec_ngram"], seen["spec_draft"], seen["spec_ngram_n"]) \
+        == (True, 5, 2)
+    monkeypatch.setenv("KFT_SERVING_SPEC_NGRAM", "0")
+    monkeypatch.delenv("KFT_SERVING_SPEC_DRAFT")
+    monkeypatch.delenv("KFT_SERVING_SPEC_NGRAM_N")
+    with pytest.raises(Stop):
+        main(device="cpu")
+    assert (seen["spec_ngram"], seen["spec_draft"], seen["spec_ngram_n"]) \
+        == (False, 8, 3)
 
 
 def _free_port() -> int:
@@ -297,6 +323,58 @@ def test_main_serves_init_on_an_empty_model_dir_and_swap_answers_409(
         err = _stop(proc)
         assert any(rec["level"] == "WARNING"
                    and "no valid checkpoint" in rec["msg"]
+                   for rec in _logged(err))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def _metric_value(url: str, line_start: str) -> float:
+    with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+        for line in r.read().decode().splitlines():
+            if line.startswith(line_start):
+                return float(line.split()[-1])
+    raise AssertionError(f"no {line_start} in /metrics")
+
+
+def test_main_serves_speculative_decoding_from_the_env():
+    """``KFT_SERVING_SPEC_NGRAM=1`` with the draft and n knobs: the pod
+    serves ``generate``'s greedy tokens through verify cycles."""
+    proc, url = _start_pod({"KFT_SERVING_SPEC_NGRAM": "1",
+                            "KFT_SERVING_SPEC_DRAFT": "4",
+                            "KFT_SERVING_SPEC_NGRAM_N": "2"})
+    try:
+        cfg, params = build_model({"KFT_SERVING_CONFIG": json.dumps(TINY)},
+                                  device="cpu")
+        prompt = [5, 6, 7, 5, 6, 7, 5, 6]
+        want = generate(cfg, params, [prompt], 12, device="cpu")[0].tolist()
+        assert _tokens(url, prompt, 12) == want
+        verify = 'inference_batch_cycle_seconds_count{phase="verify"}'
+        commit = 'inference_batch_cycle_seconds_count{phase="commit"}'
+        assert _metric_value(url, verify) >= 1
+        assert _metric_value(url, verify) == _metric_value(url, commit)
+        _stop(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def test_main_starts_an_moe_config_on_the_fallback_engine():
+    moe = {**TINY, "moe_experts": 4, "moe_top_k": 2}
+    proc, url = _start_pod({"KFT_SERVING_CONFIG": json.dumps(moe)})
+    try:
+        cfg, params = build_model({"KFT_SERVING_CONFIG": json.dumps(moe)},
+                                  device="cpu")
+        assert "moe" in params["block_1"]
+        status, payload = _call(url, "/v1/status")
+        assert payload["batched"] is False
+        assert payload["slots"]["total"] == 1
+        want = generate(cfg, params, [[8, 1, 9]], 6, device="cpu")[0]
+        assert _tokens(url, [8, 1, 9], 6) == want.tolist()
+        err = _stop(proc)
+        assert any(rec["level"] == "WARNING" and "fallback" in rec["msg"]
                    for rec in _logged(err))
     finally:
         if proc.poll() is None:

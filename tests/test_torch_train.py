@@ -415,8 +415,8 @@ def test_unported_training_paths_raise():
         build_lm(cfg, mesh=object())
     with pytest.raises(NotImplementedError, match="A10"):
         make_lm_train_step(mesh=object(), cfg=cfg)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        make_lm_train_step(cfg=LMConfig(moe_experts=2, **SMALL))
+    # MoE training is ported (tests/test_torch_moe.py): its step builds.
+    assert callable(make_lm_train_step(cfg=LMConfig(moe_experts=2, **SMALL)))
     state = create_lm_state(build_lm(cfg), seed=0, device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         run_steps(make_lm_train_step(cfg=cfg), state, [], telemetry=object())
