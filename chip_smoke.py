@@ -159,6 +159,26 @@ Phases (a failed phase raises; nothing is caught):
    prefill and first-step logits within TOL_LOGITS at every position
    routed alike on both paths, at most 1% of token-layer routings
    differing.
+14. parallel (last): ``initialize_from_env`` on a single replica's env
+   (``slice_env_for_rank(..., 0, 1)``) must form no world; ``make_mesh
+   (MeshSpec())`` then forms an NCCL world of one over the card (backend,
+   world size and mesh shape printed). The train phase's LM (8x1024 MHA,
+   vocab 32768, bf16 compute, f32 parameters from seed 0, batch 4 x 2048)
+   through ``make_lm_train_step(mesh)`` against the meshless step: the
+   step-0 loss within 1e-5 relative and every leaf after the step within
+   1e-5 in relative norm (whether bit-equal is printed); then 6 steps of
+   each, timed, with 8 launches of each flash kernel a mesh step.
+   ResNet-50 at the resnet phase's shape (batch 256 of 224x224 bf16,
+   ``make_optimizer()``, seed 0): one step on the mesh against the
+   meshless one (loss, params and ``batch_stats`` within 1e-5), then 3
+   timed steps of each. The ring's hop arithmetic at full width (B=1,
+   H=8, Hkv=2, S=8192 as 4 shards of 2048, d=128, bf16): ``ring_hop``
+   over the 4 source shards of every query shard in one process, dead
+   hops skipped, causal, window 1024 and packed documents across shard
+   boundaries, each against ``mha_reference`` in f32 within TOL_BF16;
+   the device ms of one hop. The ring's collectives are held on the CPU
+   (gloo worlds in ``tests/test_torch_ring.py``): one card runs one NCCL
+   rank.
 
 Output: one JSON line per phase, the ``{"kernels": [...]}`` summary,
 the card's name and power limit, and last
@@ -2834,6 +2854,276 @@ def moe_phase(torch, timer) -> dict:
             "serve": serve, "launches": launches}
 
 
+# ------------------------------------------------------------- parallel
+
+# parallel phase: the mesh path at world 1 (one card, one NCCL rank)
+# against the meshless path on the same seed and batch: the LM step (the
+# train phase's config and batch) and the ResNet-50 step (the resnet
+# phase's), each held to PARALLEL_RTOL (loss relative, every leaf after
+# the step in relative norm); then PARALLEL_STEPS timed steps of each LM
+# path and PARALLEL_RESNET_STEPS of each ResNet path. The ring's hop
+# arithmetic runs at RING_SHAPE, S split into RING_SHARDS shards driven
+# in one process, against mha_reference in f32 within TOL_BF16.
+PARALLEL_RTOL = 1e-5
+PARALLEL_STEPS, PARALLEL_RESNET_STEPS = 6, 3
+RING_SHAPE = dict(b=1, h=8, h_kv=2, s=8192, d=128)
+RING_SHARDS = 4
+RING_WINDOW = 1024
+
+
+def rel_err(got, want) -> float:
+    got, want = got.detach().double(), want.detach().double()
+    return float((got - want).norm() / max(float(want.norm()), 1e-30))
+
+
+def worst_leaf(torch, got: dict, want: dict) -> tuple:
+    """(relative norm, path) of the worst leaf; whether all are equal."""
+    errs = [(rel_err(got[k], want[k]), k) for k in want]
+    equal = all(torch.equal(got[k].detach(), want[k].detach())
+                for k in want)
+    return max(errs), equal
+
+
+def timed_steps(torch, step, state, batch, n: int) -> tuple:
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        float(metrics["loss"])   # syncs the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, ms
+
+
+def parallel_lm(torch, mesh) -> dict:
+    """Step 0 of the LM on the mesh against the meshless step, then
+    PARALLEL_STEPS timed steps of each; the launch counters are zeroed
+    just before the mesh path's steps and read just after."""
+    from kubeflow_tpu_torch.models import (
+        build_lm,
+        create_lm_state,
+        gather_state,
+        make_lm_train_step,
+    )
+    from kubeflow_tpu_torch.models.optim import flatten
+    from kubeflow_tpu_torch.ops import _build
+
+    cfg, state, tokens = train_setup(torch)
+    batch = {"tokens": tokens}
+    plain_step = make_lm_train_step(cfg=cfg)
+    mesh_state = create_lm_state(build_lm(cfg, mesh), seed=0, mesh=mesh)
+    mesh_step = make_lm_train_step(mesh, cfg=cfg)
+    state, plain = plain_step(state, batch)
+    _build.reset_launches()
+    mesh_state, meshed = mesh_step(mesh_state, batch)
+    torch.cuda.synchronize()
+    step0_launches = dict(_build.LAUNCHES)
+    loss, want = float(meshed["loss"]), float(plain["loss"])
+    loss_err = abs(loss - want) / abs(want)
+    if not loss_err <= PARALLEL_RTOL:
+        _fail(f"mesh LM step-0 loss {loss} vs meshless {want}")
+    (err, leaf), equal = worst_leaf(
+        torch, dict(flatten(gather_state(mesh_state).params)),
+        dict(flatten(state.params)))
+    if not err <= PARALLEL_RTOL:
+        _fail(f"mesh LM leaf {leaf} after step 0 is {err} from the "
+              f"meshless step's in relative norm")
+    state, plain_ms = timed_steps(torch, plain_step, state, batch,
+                                  PARALLEL_STEPS)
+    _build.reset_launches()
+    mesh_state, mesh_ms = timed_steps(torch, mesh_step, mesh_state, batch,
+                                      PARALLEL_STEPS)
+    launches = dict(_build.LAUNCHES)
+    for name in TRAIN_KERNELS:
+        if launches[name] != PARALLEL_STEPS * cfg.layers:
+            _fail(f"{name} launched {launches[name]} times in "
+                  f"{PARALLEL_STEPS} mesh steps, not {cfg.layers} a step")
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    plain_med = statistics.median(plain_ms[1:])
+    mesh_med = statistics.median(mesh_ms[1:])
+    return {"loss": {"mesh": loss, "meshless": want}, "loss_rel_err": loss_err,
+            "leaf_rel_err_max": err, "worst_leaf": leaf,
+            "bit_equal": equal and loss == want,
+            "step0_launches": {n: step0_launches[n] for n in TRAIN_KERNELS},
+            "step_ms": {"mesh": mesh_ms, "meshless": plain_ms},
+            "step_ms_median": {"mesh": mesh_med, "meshless": plain_med},
+            "tokens_per_s": {"mesh": tokens_per_step / mesh_med * 1e3,
+                             "meshless": tokens_per_step / plain_med * 1e3},
+            "launches": launches,
+            "launches_per_step": {n: launches[n] / PARALLEL_STEPS
+                                  for n in TRAIN_KERNELS}}
+
+
+def parallel_resnet(torch, mesh) -> dict:
+    """One ResNet-50 step on the mesh against the meshless step (loss,
+    params and batch_stats), then PARALLEL_RESNET_STEPS timed steps of
+    each."""
+    from kubeflow_tpu_torch.models import (
+        create_train_state,
+        gather_state,
+        make_optimizer,
+        make_train_step,
+        resnet50,
+    )
+    from kubeflow_tpu_torch.models.optim import flatten
+
+    shape = (RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3)
+    model = resnet50(num_classes=RESNET_CLASSES)
+    gen = torch.Generator(device="cuda").manual_seed(2027)
+    batch = {"image": torch.randn(shape, generator=gen,
+                                  device="cuda").to(torch.bfloat16),
+             "label": torch.randint(0, RESNET_CLASSES, (RESNET_BATCH,),
+                                    generator=gen, device="cuda")}
+    out = {}
+    states, steps = {}, {}
+    for name, m in (("meshless", None), ("mesh", mesh)):
+        states[name] = create_train_state(model, seed=0, input_shape=shape,
+                                          tx=make_optimizer(), mesh=m)
+        steps[name] = make_train_step(m, smoothing=RESNET_SMOOTHING)
+        states[name], metrics = steps[name](states[name], batch)
+        out[name] = float(metrics["loss"])
+    loss_err = abs(out["mesh"] - out["meshless"]) / abs(out["meshless"])
+    if not loss_err <= PARALLEL_RTOL:
+        _fail(f"mesh ResNet-50 step-0 loss {out['mesh']} vs meshless "
+              f"{out['meshless']}")
+    whole = gather_state(states["mesh"])
+    errs = {}
+    for group in ("params", "batch_stats"):
+        errs[group] = worst_leaf(torch, dict(flatten(getattr(whole, group))),
+                                 dict(flatten(getattr(states["meshless"],
+                                                      group))))
+        (err, leaf), _ = errs[group]
+        if not err <= PARALLEL_RTOL:
+            _fail(f"mesh ResNet-50 {group} leaf {leaf} after step 0 is "
+                  f"{err} from the meshless step's in relative norm")
+    del whole
+    ms = {}
+    for name in ("meshless", "mesh"):
+        states[name], ms[name] = timed_steps(torch, steps[name],
+                                             states[name], batch,
+                                             PARALLEL_RESNET_STEPS)
+    return {"loss": out, "loss_rel_err": loss_err,
+            "params_rel_err_max": errs["params"][0][0],
+            "batch_stats_rel_err_max": errs["batch_stats"][0][0],
+            "bit_equal": (out["mesh"] == out["meshless"]
+                          and errs["params"][1] and errs["batch_stats"][1]),
+            "step_ms": ms,
+            "step_ms_median": {n: statistics.median(v) for n, v in ms.items()}}
+
+
+def ring_hops(torch, timer) -> dict:
+    """``ring_hop`` over RING_SHARDS source shards for each query shard
+    (dead hops skipped by ``hop_live``) in one process on the card, bf16,
+    at RING_SHAPE: causal, a RING_WINDOW window, and packed documents
+    that cross shard boundaries, each against ``mha_reference`` in f32
+    within TOL_BF16; then the device ms of one live hop."""
+    from kubeflow_tpu_torch.ops.attention import mha_reference
+    from kubeflow_tpu_torch.ops.ring import hop_live, ring_hop
+
+    b, h, h_kv, s, d = (RING_SHAPE[k] for k in ("b", "h", "h_kv", "s", "d"))
+    n, s_local = RING_SHARDS, s // RING_SHARDS
+    gen = torch.Generator(device="cuda").manual_seed(2031)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16)
+               for shape in ((b, h, s, d), (b, h_kv, s, d), (b, h_kv, s, d)))
+    # Documents of 1000 to 3000 tokens: boundaries inside shards, and
+    # documents that span a shard boundary.
+    seg = torch.zeros((b, s), dtype=torch.int32, device="cuda")
+    for cut in (1500, 2600, 5000, 7100):
+        seg[:, cut:] += 1
+
+    def shard(t, i, dim=2):
+        return t.narrow(dim, i * s_local, s_local)
+
+    def hop_args(i, src, causal, window, segs):
+        return dict(q_index=i, src=src, s_local=s_local, scale=d ** -0.5,
+                    causal=causal, window=window,
+                    seg_q=None if segs is None else shard(segs, i, 1),
+                    seg_k=None if segs is None else shard(segs, src, 1))
+
+    def drive(causal, window, segs):
+        outs, hops = [], 0
+        for i in range(n):
+            qg = shard(q, i).reshape(b, h_kv, h // h_kv, s_local, d)
+            o = torch.zeros(qg.shape, dtype=torch.float32, device="cuda")
+            m = torch.full(qg.shape[:-1] + (1,), -1e30, device="cuda")
+            carry = (o, m, torch.zeros_like(m))
+
+            def rng(j):
+                if segs is None:
+                    return None
+                blk = shard(segs, j, 1)
+                return [blk.amin(1).tolist(), blk.amax(1).tolist()]
+
+            for src in range(n):
+                if hop_live(i, src, s_local, causal, window, rng(i),
+                            rng(src)):
+                    hops += 1
+                    carry = ring_hop(qg, shard(k, src), shard(v, src), carry,
+                                     **hop_args(i, src, causal, window,
+                                                segs))
+            outs.append((carry[0] / carry[2]).reshape(b, h, s_local, d)
+                        .to(torch.bfloat16))
+        return torch.cat(outs, dim=2), hops
+
+    cases = {}
+    for name, causal, window, segs in (("causal", True, None, None),
+                                       ("window", True, RING_WINDOW, None),
+                                       ("segments", True, None, seg)):
+        got, hops = drive(causal, window, segs)
+        ref = mha_reference(q.float(), k.float(), v.float(), causal=causal,
+                            window=window, segment_ids=segs)
+        err, used = check_close(got, ref, TOL_BF16)
+        if not used <= 1.0:
+            _fail(f"ring hops [{name}] at {used} of the bf16 limit")
+        cases[name] = {"hops": hops, "max_abs_err": err, "tol_used": used}
+        del ref
+    qg = shard(q, n - 1).reshape(b, h_kv, h // h_kv, s_local, d)
+    o = torch.zeros(qg.shape, dtype=torch.float32, device="cuda")
+    m = torch.zeros(qg.shape[:-1] + (1,), device="cuda")
+    carry = (o, m, torch.ones_like(m))
+    hop_ms = timer(lambda: ring_hop(qg, shard(k, 0), shard(v, 0), carry,
+                                    **hop_args(n - 1, 0, True, None, None)))
+    return {"shape": RING_SHAPE, "shards": n, "window": RING_WINDOW,
+            "tol": TOL_BF16, "cases": cases, "hop_ms": hop_ms,
+            "collectives": "held on the CPU in gloo worlds "
+                           "(tests/test_torch_ring.py), not on the card"}
+
+
+def parallel_phase(torch, timer) -> dict:
+    """The world from the platform env (a single replica: none), a mesh
+    of one over the card, the LM and ResNet-50 steps on it against the
+    meshless steps, and the ring's hops at full width."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.parallel import (
+        MeshSpec,
+        initialize_from_env,
+        make_mesh,
+        slice_env_for_rank,
+    )
+
+    denv = initialize_from_env(slice_env_for_rank("smoke", "default", 0, 1))
+    if dist.is_initialized():
+        _fail("initialize_from_env formed a world for a single replica")
+    mesh = make_mesh(MeshSpec())
+    world = {"backend": dist.get_backend(),
+             "world_size": dist.get_world_size(), "mesh_shape": mesh.shape,
+             "device": str(mesh.device), "multihost": denv.is_multihost}
+    print(json.dumps({"phase": "parallel_world", **world}), flush=True)
+    lm = parallel_lm(torch, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resnet = parallel_resnet(torch, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ring = ring_hops(torch, timer)
+    dist.destroy_process_group()
+    launches = {name: lm["launches"].get(name, 0)
+                for name in SERVE_KERNELS + TRAIN_KERNELS}
+    return {"phase": "parallel", "world": world, "rtol": PARALLEL_RTOL,
+            "lm": lm, "resnet": resnet, "ring": ring, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2910,6 +3200,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = moe_phase(torch, timer)
     print(json.dumps(moe), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    parallel = parallel_phase(torch, timer)
+    print(json.dumps(parallel), flush=True)
     main_case = {"gemv": "tied_head", "qkv_rope": "flagship",
                  "decode_attention": "serve_shape",
                  "flash_attention": "causal", "flash_dq": "train_causal",
@@ -2925,7 +3219,8 @@ def main() -> int:
     # ``long_launches`` the long phase's three runs'; ``spec_launches``
     # the spec phase's four speculative runs', ``spec_serve_launches``
     # the speculative engine run's, ``moe_launches`` the moe phase's two
-    # training runs' and its fallback engine run's.
+    # training runs' and its fallback engine run's, ``parallel_launches``
+    # the parallel phase's mesh LM steps'.
     launches = {**serve["launches"], "flash_dq": train["launches"]["flash_dq"],
                 "flash_dkv": train["launches"]["flash_dkv"]}
     meta = {
@@ -2960,7 +3255,8 @@ def main() -> int:
             "long_launches": long["launches"][name],
             "spec_launches": spec["launches"][name],
             "spec_serve_launches": spec_serve["launches"][name],
-            "moe_launches": moe["launches"][name]})
+            "moe_launches": moe["launches"][name],
+            "parallel_launches": parallel["launches"][name]})
     print(json.dumps({"kernels": summary}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

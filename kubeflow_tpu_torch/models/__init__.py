@@ -9,11 +9,15 @@ reference's on-disk format (``checkpoint``); the flax weight and
 train-state converter (``convert``); KV-cache decode with stacked params
 and rolling chunks (``decoding``), the continuous batcher with its
 speculative verify (``serving``) and self-speculative n-gram decoding
-(``speculative``). Pipelining belongs to a later slice."""
+(``speculative``). The LM and image steps train on dp/fsdp/tp/sp meshes
+(``parallel``); pipelining and expert parallelism belong to later
+slices."""
 
 from kubeflow_tpu_torch.models.convert import (
+    gather_state,
     params_from_jax,
     resnet_variables_from_jax,
+    shard_state,
     train_state_from_jax,
 )
 from kubeflow_tpu_torch.models.decoding import (
@@ -53,11 +57,14 @@ from kubeflow_tpu_torch.models.train import (
     realign_batches,
     run_steps,
     run_with_checkpointing,
+    state_shardings,
 )
 from kubeflow_tpu_torch.models.transformer import (
+    LM_TP_RULES,
     LMConfig,
     TransformerLM,
     build_lm,
+    check_tp_layout,
     create_lm_state,
     init_params,
     lm_loss,
@@ -72,6 +79,8 @@ __all__ = [
     "lm_loss",
     "create_lm_state",
     "make_lm_train_step",
+    "LM_TP_RULES",
+    "check_tp_layout",
     "TrainState",
     "run_steps",
     "RunReport",
@@ -89,6 +98,9 @@ __all__ = [
     "cross_entropy",
     "make_train_step",
     "make_eval_step",
+    "state_shardings",
+    "shard_state",
+    "gather_state",
     "params_from_jax",
     "resnet_variables_from_jax",
     "train_state_from_jax",

@@ -40,10 +40,10 @@ Where the port differs from the reference, and why:
   the state's tensors in place, so the writer thread must not read
   them. The payload then streams to its file leaf by leaf, hashed on
   the way, instead of being built in one host buffer.
-- The state is replicated on every rank (no sharded tensors yet), so
-  process 0 writes every leaf whole; restore assembles whole leaves on
-  the template's device. ``placements``/``mesh`` belong to the parallel
-  slice (ROADMAP A10) and raise.
+- The state is replicated on every rank, so process 0 writes every leaf
+  whole; restore assembles whole leaves on the template's device. A
+  state on a mesh (its leaves are shards), ``placements`` and ``mesh``
+  belong to a later slice of the port (ROADMAP A10c) and raise.
 - The multi-process transport is ``torch.distributed``'s store when a
   process group is initialised (the reference uses jax.distributed's
   coordination service); injected ``barrier``/``broadcast`` callables
@@ -302,6 +302,11 @@ def _arrays_only(state):
     the template. Any other tree is returned as it is."""
     if not isinstance(state, TrainState):
         return state
+    if state.mesh is not None:
+        raise NotImplementedError(
+            "checkpoints of a state on a mesh (per-rank shard writes, "
+            "region reads) belong to a later slice of the port "
+            "(ROADMAP A10c)")
     opt = state.opt_state
     if isinstance(opt, AdamWState):
         opt = (dataclasses.replace(opt, count=np.int32(int(opt.count))),)
@@ -980,8 +985,8 @@ def _load_step_dir(step_dir: str, like, placements=None):
     mmapped and digest-verified shard by shard on first touch."""
     if placements is not None:
         raise NotImplementedError(
-            "sharded placements belong to the parallel/ slice of the port "
-            "(ROADMAP A10)")
+            "sharded placements belong to a later slice of the port "
+            "(ROADMAP A10c)")
     manifest = _read_manifest(step_dir)
     metas: list[dict] = []
     bin_names: list[str] = []
@@ -1087,12 +1092,12 @@ def restore_checkpoint(path, like, mesh=None, tp_rules: dict | None = None):
     """Restore into the shape of ``like`` (a TrainState template from
     ``create_lm_state`` or any tree). ``path`` may be a checkpoint root
     (the newest valid step), a step directory, or a stepless
-    ``save_checkpoint`` target. ``mesh``/``tp_rules`` belong to the
-    parallel slice (ROADMAP A10)."""
+    ``save_checkpoint`` target. ``mesh``/``tp_rules`` belong to a later
+    slice of the port (ROADMAP A10c)."""
     if mesh is not None or tp_rules is not None:
         raise NotImplementedError(
-            "restoring onto a mesh belongs to the parallel/ slice of the "
-            "port (ROADMAP A10)")
+            "restoring onto a mesh belongs to a later slice of the port "
+            "(ROADMAP A10c)")
     path = os.path.abspath(os.fspath(path))
     if os.path.isfile(os.path.join(path, MANIFEST_NAME)):
         problems = _validate_step_dir(path)

@@ -16,10 +16,17 @@ stays (vocab, dim), which is what the tied head reads with
 ``transpose_w``. Matmul weights are cast to the compute
 dtype once here (the reference casts on every call, to the same
 values); norm scales stay f32.
+
+:func:`shard_state` lays a whole state (converted, or built without a
+mesh) onto a mesh, each rank keeping its shards; :func:`gather_state`
+assembles a mesh state whole again. The reference's sharded arrays come
+to numpy whole through ``np.asarray``, so a converted state is always
+whole first.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Mapping
 from typing import Any
 
@@ -36,9 +43,15 @@ from kubeflow_tpu_torch.models.optim import (
     make_optimizer,
     trainable,
 )
+from kubeflow_tpu_torch.models.optim import tree_map_with_path
 from kubeflow_tpu_torch.models.resnet import ResNet
-from kubeflow_tpu_torch.models.train import TrainState
-from kubeflow_tpu_torch.models.transformer import LMConfig, build_lm
+from kubeflow_tpu_torch.models.train import TrainState, state_shardings
+from kubeflow_tpu_torch.models.transformer import (
+    LMConfig,
+    TransformerLM,
+    build_lm,
+)
+from kubeflow_tpu_torch.parallel.mesh import gather_block, local_block
 
 _F32_LEAVES = ("RMSNorm_0", "RMSNorm_1", "final_norm")
 # Optimizer moments keep their dtype across (the reference's mu is bf16).
@@ -149,3 +162,69 @@ def train_state_from_jax(cfg, state_np, apply_fn=None, tx=None,
     return TrainState(step=int(state_np.step), params=params,
                       opt_state=opt_state, tx=tx,
                       apply_fn=apply_fn or build_lm(cfg))
+
+
+def _map_param_trees(node, fn):
+    """``fn`` over every parameter-shaped dict of an optimizer state
+    (AdamW's mu and nu, the SGD chain's trace), its structure kept."""
+    if isinstance(node, dict):
+        return fn(node)
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map_param_trees(child, fn) for child in node)
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return dataclasses.replace(node, **{
+            f.name: _map_param_trees(getattr(node, f.name), fn)
+            for f in dataclasses.fields(node)})
+    return node
+
+
+def shard_state(state: TrainState, mesh, tp_rules: dict | None = None,
+                apply_fn=None) -> TrainState:
+    """A WHOLE state laid onto ``mesh``: each rank keeps its block of
+    every leaf at :func:`~kubeflow_tpu_torch.models.train.state_shardings`
+    (the moments and the trace at their parameter's placement), sliced
+    where the state lies and only then moved to the mesh's device, so a
+    state made in host memory never reaches the card whole; the
+    parameters require grad. ``tp_rules`` must be
+    the model's (``transformer.LM_TP_RULES`` for the LM). The new
+    state's ``apply_fn`` is ``apply_fn``, else, for the LM, the meshless
+    model's config built on the mesh (``build_lm(cfg, mesh)``), else the
+    state's own (ResNet's model takes its BatchNorm group per call)."""
+    placements = state_shardings(state, mesh, tp_rules)
+
+    def shard(group):
+        def leaf(path, t):
+            return local_block(mesh, t.detach(),
+                               placements[group][path]).to(mesh.device)
+        return lambda tree: tree_map_with_path(leaf, tree)
+
+    if apply_fn is None:
+        apply_fn = state.apply_fn
+        if isinstance(apply_fn, TransformerLM):
+            apply_fn = build_lm(apply_fn.cfg, mesh=mesh)
+    return dataclasses.replace(
+        state, params=trainable(shard("params")(state.params)),
+        opt_state=_map_param_trees(state.opt_state, shard("params")),
+        batch_stats=shard("batch_stats")(state.batch_stats),
+        apply_fn=apply_fn, mesh=mesh, placements=placements)
+
+
+def gather_state(state: TrainState) -> TrainState:
+    """A mesh state assembled whole on every rank (a collective: every
+    rank calls it), for comparing with a meshless run. Its ``apply_fn``
+    is the LM's config built without a mesh, else the state's own."""
+    mesh, placements = state.mesh, state.placements
+
+    def whole(group):
+        def leaf(path, t):
+            return gather_block(mesh, t.detach(), placements[group][path])
+        return lambda tree: tree_map_with_path(leaf, tree)
+
+    apply_fn = state.apply_fn
+    if isinstance(apply_fn, TransformerLM):
+        apply_fn = build_lm(apply_fn.cfg)
+    return dataclasses.replace(
+        state, params=trainable(whole("params")(state.params)),
+        opt_state=_map_param_trees(state.opt_state, whole("params")),
+        batch_stats=whole("batch_stats")(state.batch_stats),
+        apply_fn=apply_fn, mesh=None, placements=None)

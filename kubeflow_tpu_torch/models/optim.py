@@ -51,6 +51,18 @@ def tree_map(fn, tree: dict[str, Any]) -> dict[str, Any]:
             for key, value in tree.items()}
 
 
+def tree_map_with_path(fn, tree: dict[str, Any],
+                       prefix: str = "") -> dict[str, Any]:
+    """``fn(path, leaf)`` over a nested dict, the paths as
+    :func:`flatten` writes them."""
+    out = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else key
+        out[key] = (tree_map_with_path(fn, value, path)
+                    if isinstance(value, dict) else fn(path, value))
+    return out
+
+
 def trainable(params: dict[str, Any]) -> dict[str, Any]:
     """The same nested dict with every leaf a tensor that requires grad
     (the leaves themselves, flagged in place)."""

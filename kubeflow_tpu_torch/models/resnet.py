@@ -34,6 +34,11 @@ keeps it:
   closed form and keeps only the bf16 input), and the train-mode call
   returns the new ``batch_stats`` instead of writing them, as
   ``mutable=["batch_stats"]`` does.
+- On a mesh the batch is split over (dp, fsdp), and a sharded flax
+  BatchNorm under ``jit`` takes the WHOLE batch's moments. The train
+  step passes that axes' process ``group``: the forward's per-channel
+  mean and mean square and the backward's sums of g and g * xhat are
+  all-reduced over it.
 - The mean pool sums in f32 and rounds to the compute dtype (``jnp.mean``
   of bf16); the head runs in f32.
 """
@@ -47,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch._device import resolve_device
+from kubeflow_tpu_torch.parallel.collectives import all_reduce
 
 MOMENTUM = 0.9
 EPSILON = 1e-5
@@ -98,13 +104,25 @@ class _BatchNormTrain(torch.autograd.Function):
     mean and 1/std, and the scale; the backward is the closed form of
     the same function, ``scale / std * (g - mean(g) - xhat * mean(g *
     xhat))``, without the last term on a channel whose variance was
-    clipped to 0 (the clip passes no gradient there)."""
+    clipped to 0 (the clip passes no gradient there).
+
+    With a process ``group`` (whose ranks hold equal batches) the
+    moments are the group's: each rank's mean and mean square times
+    1/n, all-reduced (at n = 1 exactly the groupless values), and the
+    backward's mean(g) and mean(g * xhat) come from the all-reduced sums.
+    The scale and bias gradients stay this rank's own sums, which the
+    train step reduces with every other gradient."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias):
+    def forward(ctx, x, scale, bias, group):
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         mean2 = (xf * xf).mean(dim=(0, 2, 3))
+        ctx.group, ctx.n = group, 1
+        if group is not None:
+            ctx.n = group.size()
+            moments = torch.stack([mean, mean2]) * (1.0 / ctx.n)
+            mean, mean2 = all_reduce(moments, group)
         raw = mean2 - mean * mean
         var = torch.clamp_min(raw, 0.0)
         rstd = torch.rsqrt(var + EPSILON)
@@ -120,24 +138,29 @@ class _BatchNormTrain(torch.autograd.Function):
         x, mean, rstd, scale, active = ctx.saved_tensors
         gf = g.float()
         xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
-        count = x.numel() // x.shape[1]
+        count = x.numel() // x.shape[1] * ctx.n
         dbias = gf.sum(dim=(0, 2, 3))
         dscale = (gf * xhat).sum(dim=(0, 2, 3))
-        centre = dscale * active / count
-        dx = (gf - (dbias / count)[:, None, None]
+        sum_g, sum_gx = dbias, dscale
+        if ctx.group is not None:
+            sum_g, sum_gx = all_reduce(torch.stack([dbias, dscale]),
+                                       ctx.group)
+        centre = sum_gx * active / count
+        dx = (gf - (sum_g / count)[:, None, None]
               - xhat * centre[:, None, None]) * (scale * rstd)[:, None, None]
-        return dx.to(x.dtype), dscale, dbias
+        return dx.to(x.dtype), dscale, dbias, None
 
 
-def batch_norm(p, stats, x, train: bool):
+def batch_norm(p, stats, x, train: bool, group=None):
     """One BatchNorm: ``p`` holds ``scale``/``bias``, ``stats``
-    ``mean``/``var``. Returns (y, new stats or None)."""
+    ``mean``/``var``; ``group`` takes the moments over a split batch
+    (:class:`_BatchNormTrain`). Returns (y, new stats or None)."""
     if not train:
         mul = torch.rsqrt(stats["var"] + EPSILON) * p["scale"]
         y = ((x.float() - stats["mean"][:, None, None]) * mul[:, None, None]
              + p["bias"][:, None, None])
         return y.to(x.dtype), None
-    y, mean, var = _BatchNormTrain.apply(x, p["scale"], p["bias"])
+    y, mean, var = _BatchNormTrain.apply(x, p["scale"], p["bias"], group)
     with torch.no_grad():
         new = {"mean": MOMENTUM * stats["mean"] + (1 - MOMENTUM) * mean,
                "var": MOMENTUM * stats["var"] + (1 - MOMENTUM) * var}
@@ -181,12 +204,12 @@ def _block(convs, stride, p, norm, x, dtype):
     return F.relu(residual + y)
 
 
-def _norms(p, stats, new, train):
+def _norms(p, stats, new, train, group=None):
     """The BatchNorms of one scope: ``norm(name, y)`` normalises with
     ``p[name]`` and ``stats[name]`` and keeps the new statistics in
     ``new`` (train mode)."""
     def norm(name, y):
-        y, updated = batch_norm(p[name], stats[name], y, train)
+        y, updated = batch_norm(p[name], stats[name], y, train, group)
         if updated is not None:
             new[name] = updated
         return y
@@ -219,16 +242,16 @@ class ResNet:
                 index, cin = index + 1, convs[-1][2]
 
     def __call__(self, params: dict[str, Any], batch_stats: dict[str, Any],
-                 images, train: bool = True):
+                 images, train: bool = True, group=None):
         dtype = self.dtype
         new_stats: dict[str, Any] = {}
         x = images.to(dtype).permute(0, 3, 1, 2)   # NHWC memory, NCHW view
-        x = _norms(params, batch_stats, new_stats, train)(
+        x = _norms(params, batch_stats, new_stats, train, group)(
             "norm_init", conv(x, params["conv_init"]["kernel"], 2, dtype))
         x = max_pool(F.relu(x))
         for name, convs, stride in self.blocks():
             norm = _norms(params[name], batch_stats[name],
-                          new_stats.setdefault(name, {}), train)
+                          new_stats.setdefault(name, {}), train, group)
             x = _block(convs, stride, params[name], norm, x, dtype)
         x = x.mean(dim=(2, 3), dtype=torch.float32).to(dtype)
         head = params["head"]

@@ -10,8 +10,14 @@ from ``models/optim``), :func:`run_steps` and the checkpointed loop
 that donates its state; the port's step updates the state's tensors in
 place and returns the same object, so a background save snapshots the
 state to host memory before the next step runs (``models/checkpoint``).
-Meshes, step telemetry, goodput and the autopilot's cadence signal
-belong to later slices and raise here.
+
+On a mesh (``parallel.make_mesh``) each rank's state holds its shards,
+``state.placements`` records every leaf's placement
+(:func:`state_shardings`), and the steps run the collectives by hand:
+:func:`gather_fsdp` before the forward, :func:`reduce_gradients` after
+the backward. Pipelines and expert parallelism (``pp``, ``ep``),
+checkpoints on a mesh, step telemetry, goodput and the autopilot's
+cadence signal belong to later slices and raise here.
 """
 
 from __future__ import annotations
@@ -28,7 +34,23 @@ import torch
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch._device import resolve_device
-from kubeflow_tpu_torch.models.optim import flatten, make_optimizer, trainable
+from kubeflow_tpu_torch.models.optim import (
+    flatten,
+    make_optimizer,
+    trainable,
+    tree_map_with_path,
+)
+from kubeflow_tpu_torch.parallel.collectives import (
+    all_gather_dim,
+    all_reduce,
+    all_reduce_flat,
+    reduce_scatter_dim,
+)
+from kubeflow_tpu_torch.parallel.mesh import (
+    gather_block,
+    local_block,
+    param_sharding,
+)
 
 log = logging.getLogger(__name__)
 
@@ -40,7 +62,9 @@ class TrainState:
     optimizer, with ``init``/``update``), ``apply_fn`` (the model: the
     LM's ``apply_fn(params, tokens, segment_ids)``, ResNet's
     ``apply_fn(params, batch_stats, images, train)``) and
-    ``batch_stats`` (BatchNorm running averages; empty for the LM)."""
+    ``batch_stats`` (BatchNorm running averages; empty for the LM). On a
+    mesh, ``mesh`` and ``placements`` (:func:`state_shardings`) say
+    which shard of each leaf this rank holds."""
 
     step: int
     params: dict[str, Any]
@@ -48,13 +72,74 @@ class TrainState:
     tx: Any
     apply_fn: Callable
     batch_stats: dict[str, Any] = dataclasses.field(default_factory=dict)
+    mesh: Any = None
+    placements: dict[str, dict[str, tuple]] | None = None
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
+def refuse_unported_axes(mesh) -> None:
+    """Pipelines and expert parallelism on a mesh are later slices."""
+    if mesh.shape["pp"] > 1:
         raise NotImplementedError(
-            "sharded image training belongs to the parallel/ slice of the "
-            "port (ROADMAP A10)")
+            "pipeline parallelism (pp > 1) belongs to a later slice of the "
+            "port (ROADMAP A10b)")
+    if mesh.shape["ep"] > 1:
+        raise NotImplementedError(
+            "expert parallelism (ep > 1) belongs to a later slice of the "
+            "port (ROADMAP A10c)")
+
+
+def state_shardings(state, mesh, tp_rules: dict | None = None) -> dict:
+    """Canonical placement per leaf, ``{"params": {path: placement},
+    "batch_stats": {...}}`` keyed by ``flatten`` paths, for a state whose
+    leaves are WHOLE (meshless). The optimizer's moments and trace take
+    their parameter's placement. ``tp_rules`` must match what the model
+    passed at creation time (e.g. ``transformer.LM_TP_RULES``) or a
+    tp-sharded state would come back tp-replicated."""
+    return {group: {path: param_sharding(mesh, tuple(path.split("/")),
+                                         leaf, tp_rules=tp_rules)
+                    for path, leaf in flatten(getattr(state, group))}
+            for group in ("params", "batch_stats")}
+
+
+def gather_fsdp(mesh, params: dict[str, Any],
+                placements: dict[str, tuple]) -> dict[str, Any]:
+    """The weights a rank computes with: each fsdp-sharded shard
+    all-gathered over fsdp into a new tensor that requires grad when its
+    shard does (its gradient is then this rank's whole-leaf gradient,
+    which :func:`reduce_gradients` reduce-scatters); every other leaf as
+    it is."""
+    def fetch(path, leaf):
+        placement = placements[path]
+        if "fsdp" not in placement:
+            return leaf
+        whole = all_gather_dim(leaf.detach(), placement.index("fsdp"),
+                               mesh.group("fsdp"))
+        return whole.requires_grad_(leaf.requires_grad)
+
+    return tree_map_with_path(fetch, params)
+
+
+def reduce_gradients(mesh, grads, placements, data_axes) -> list:
+    """Sum each leaf's gradient over the mesh axes that split the data
+    (``data_axes``: the batch's, and the sequence's for the LM) and keep
+    this rank's shard: reduce-scatter over fsdp for a leaf fsdp shards,
+    then one all-reduce per (axes, dtype) bucket over the rest. Never
+    over tp or the other axes, which replicate the computation."""
+    out = list(grads)
+    buckets: dict[tuple, list[int]] = {}
+    for i, (g, placement) in enumerate(zip(grads, placements)):
+        axes = tuple(data_axes)
+        if "fsdp" in placement:
+            out[i] = reduce_scatter_dim(g, placement.index("fsdp"),
+                                        mesh.group("fsdp"))
+            axes = tuple(a for a in axes if a != "fsdp")
+        if axes:
+            buckets.setdefault((axes, g.dtype), []).append(i)
+    for (axes, _), idx in buckets.items():
+        reduced = all_reduce_flat([out[i] for i in idx], mesh.group(axes))
+        for i, g in zip(idx, reduced):
+            out[i] = g
+    return out
 
 
 def cross_entropy(logits, labels, smoothing: float = 0.1):
@@ -73,15 +158,32 @@ def create_train_state(model, seed: int, input_shape: tuple[int, ...],
     """The image model's TrainState: f32 parameters that require grad and
     the running statistics from ``model.init_variables(seed)`` for
     images of ``input_shape`` (N, H, W, C), on the card unless
-    ``device="cpu"``, and ``make_optimizer()`` by default."""
-    _refuse_mesh(mesh)
+    ``device="cpu"``, and ``make_optimizer()`` by default.
+
+    With a ``mesh`` the state is initialised whole from the same seed in
+    host memory, then each rank moves only its shard of every leaf of
+    the parameters, the SGD trace and ``batch_stats`` to the mesh's
+    device, at ``param_sharding`` with no tp rules, as the reference
+    places them (``shard_state``)."""
+    if mesh is not None:
+        refuse_unported_axes(mesh)
+        device = "cpu"
     tx = tx or make_optimizer()
     variables = model.init_variables(seed, in_channels=input_shape[-1],
                                      device=resolve_device(device))
     params = trainable(variables["params"])
-    return TrainState(step=0, params=params, opt_state=tx.init(params),
-                      tx=tx, apply_fn=model,
-                      batch_stats=variables["batch_stats"])
+    state = TrainState(step=0, params=params, opt_state=tx.init(params),
+                       tx=tx, apply_fn=model,
+                       batch_stats=variables["batch_stats"])
+    if mesh is None:
+        return state
+    from kubeflow_tpu_torch.models.convert import shard_state
+
+    return shard_state(state, mesh)
+
+
+# The axes that split an image batch (its rows).
+IMAGE_DATA_AXES = ("dp", "fsdp")
 
 
 def make_train_step(mesh=None, smoothing: float = 0.1):
@@ -89,21 +191,58 @@ def make_train_step(mesh=None, smoothing: float = 0.1):
     H, W, C), "label": (N,) int} computes the smoothed loss and its
     gradients in train mode (batch statistics), applies the optimizer IN
     PLACE, takes the new running averages as ``state.batch_stats``, and
-    returns ``(state, {"loss", "accuracy"})`` (0-d tensors)."""
-    _refuse_mesh(mesh)
+    returns ``(state, {"loss", "accuracy"})`` (0-d tensors).
+
+    With a ``mesh`` the state must be on it (``create_train_state(mesh=)``)
+    and every rank passes the WHOLE batch: the step keeps this rank's
+    (dp, fsdp) rows, takes every BatchNorm's moments over the whole batch
+    (its sums all-reduced over the (dp, fsdp) group, forward and
+    backward), scales the loss by the rank's share of the batch so the
+    ranks' losses sum to the global mean, gathers fsdp-sharded weights
+    before the forward and reduces the gradients over (dp, fsdp) after
+    the backward (:func:`reduce_gradients`). Loss and accuracy are the
+    whole batch's means."""
+    group = None
+    if mesh is not None:
+        refuse_unported_axes(mesh)
+        group = mesh.group(IMAGE_DATA_AXES)
 
     def step(state, batch):
-        leaves = [t for _, t in flatten(state.params)]
-        logits, new_stats = state.apply_fn(state.params, state.batch_stats,
-                                           batch["image"], train=True)
-        loss = cross_entropy(logits, batch["label"], smoothing)
-        grads = torch.autograd.grad(loss, leaves)
+        if state.mesh is not mesh:
+            raise ValueError("the state is not on this mesh: "
+                             "create_train_state(..., mesh=mesh)")
+        images, labels = batch["image"], batch["label"]
+        weights, stats, share = state.params, state.batch_stats, 1.0
+        if mesh is not None:
+            placements = state.placements
+            rows = mesh.slice(IMAGE_DATA_AXES, images.shape[0])
+            share = (rows.stop - rows.start) / images.shape[0]
+            images, labels = images[rows], labels[rows]
+            weights = gather_fsdp(mesh, weights, placements["params"])
+            stats = tree_map_with_path(
+                lambda path, t: gather_block(
+                    mesh, t, placements["batch_stats"][path]), stats)
+        logits, new_stats = state.apply_fn(weights, stats, images,
+                                           train=True, group=group)
+        loss = cross_entropy(logits, labels, smoothing) * share
+        paths = [path for path, _ in flatten(weights)]
+        grads = torch.autograd.grad(loss, [t for _, t in flatten(weights)])
+        if mesh is not None:
+            grads = reduce_gradients(
+                mesh, grads, [placements["params"][p] for p in paths],
+                IMAGE_DATA_AXES)
+            new_stats = tree_map_with_path(
+                lambda path, t: local_block(
+                    mesh, t, placements["batch_stats"][path]), new_stats)
         with torch.no_grad():
             state.tx.update(grads, state.opt_state, state.params)
-            accuracy = _accuracy(logits, batch["label"])
+            metrics = torch.stack([loss.detach(),
+                                   _accuracy(logits, labels) * share])
+            if group is not None:
+                all_reduce(metrics, group)
         state.batch_stats = new_stats
         state.step += 1
-        return state, {"loss": loss.detach(), "accuracy": accuracy}
+        return state, {"loss": metrics[0], "accuracy": metrics[1]}
 
     return step
 
@@ -188,8 +327,8 @@ def _refuse_unported(mesh, tp_rules, telemetry, goodput, goodput_publish,
                      cadence_signal) -> None:
     if mesh is not None or tp_rules is not None:
         raise NotImplementedError(
-            "checkpointed runs on a mesh belong to the parallel/ slice of "
-            "the port (ROADMAP A10)")
+            "checkpointed runs on a mesh belong to a later slice of the "
+            "port (ROADMAP A10c)")
     if telemetry is not None or goodput is not None \
             or goodput_publish is not None:
         raise NotImplementedError(
@@ -233,7 +372,7 @@ def run_with_checkpointing(step_fn, state, batches, manager, *,
       :class:`~kubeflow_tpu_torch.obs.FlightRecorder` each step lands
       one ``train_step`` snapshot.
 
-    ``mesh``/``tp_rules`` (ROADMAP A10), ``telemetry``, ``goodput`` and
+    ``mesh``/``tp_rules`` (ROADMAP A10c), ``telemetry``, ``goodput`` and
     ``goodput_publish`` (A11) and ``cadence_signal`` (A5 leftovers) are
     not ported and raise when given.
 

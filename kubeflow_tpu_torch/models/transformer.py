@@ -27,16 +27,43 @@ import torch.nn.functional as F
 
 from kubeflow_tpu_torch._device import resolve_device
 from kubeflow_tpu_torch.models.optim import AdamW, flatten, trainable
-from kubeflow_tpu_torch.models.train import TrainState
+from kubeflow_tpu_torch.models.train import (
+    TrainState,
+    gather_fsdp,
+    reduce_gradients,
+    refuse_unported_axes,
+)
 from kubeflow_tpu_torch.ops.attention import (
     _attend,
     apply_rope,
     check_segment_ids,
     mha_reference,
 )
-from kubeflow_tpu_torch.ops.cross_entropy import fused_lm_loss
+from kubeflow_tpu_torch.ops.cross_entropy import (
+    fused_lm_loss,
+    masked_mean,
+    next_token_targets,
+)
+from kubeflow_tpu_torch.ops.ring import ring_attention
+from kubeflow_tpu_torch.parallel.collectives import (
+    CopyToGroup,
+    GatherFromGroup,
+    ReduceFromGroup,
+    ScatterToGroup,
+    all_reduce,
+)
+from kubeflow_tpu_torch.parallel.mesh import param_sharding
 
 AttnImpl = Callable[..., torch.Tensor]  # (q, k, v, causal=, segment_ids=)
+
+# Megatron tp layout for this model's kernels: column-parallel into the
+# block (q/k/v/up: out dim -> tp), row-parallel out (proj/down: in dim
+# -> tp), so each pair costs one all-reduce. Passed to
+# parallel.param_sharding by create_lm_state (tp is opt-in per model).
+LM_TP_RULES = {
+    "q_proj": 1, "k_proj": 1, "v_proj": 1, "up": 1,
+    "proj": 0, "down": 0,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,6 +280,41 @@ def moe_ffn(cfg: LMConfig, p: dict[str, Any], x,
     return moe_combine(cfg, combine_t, expert_out)
 
 
+def _leaf_specs(cfg: LMConfig):
+    """(path, shape, init) of every parameter, in draw order: ``init``
+    is the std of an N(0, std^2) draw, ``"router"`` for an MoE router
+    (drawn in f32), or None for a norm scale of ones (f32)."""
+    d, hd = cfg.dim, cfg.head_dim
+    kv = cfg.num_kv_heads * hd
+    hidden = cfg.mlp_ratio * d
+    e = cfg.moe_experts
+    yield "embed/embedding", (cfg.vocab, d), d ** -0.5
+    for i in range(cfg.layers):
+        blk = f"block_{i}"
+        yield f"{blk}/RMSNorm_0/scale", (d,), None
+        yield f"{blk}/q_proj/kernel", (d, d), d ** -0.5
+        yield f"{blk}/k_proj/kernel", (d, kv), d ** -0.5
+        yield f"{blk}/v_proj/kernel", (d, kv), d ** -0.5
+        yield f"{blk}/proj/kernel", (d, d), d ** -0.5
+        yield f"{blk}/RMSNorm_1/scale", (d,), None
+        if is_moe_block(cfg, i):
+            yield f"{blk}/moe/router/kernel", (d, e), "router"
+            yield f"{blk}/moe/experts_up", (e, d, hidden), (e * d) ** -0.5
+            yield f"{blk}/moe/experts_down", (e, hidden, d), (
+                e * hidden) ** -0.5
+        else:
+            yield f"{blk}/up/kernel", (d, hidden), d ** -0.5
+            yield f"{blk}/down/kernel", (hidden, d), hidden ** -0.5
+    yield "final_norm/scale", (d,), None
+
+
+def _set(tree: dict, path: str, leaf) -> None:
+    *groups, name = path.split("/")
+    for key in groups:
+        tree = tree.setdefault(key, {})
+    tree[name] = leaf
+
+
 def init_params(cfg: LMConfig, seed: int = 0, device=None,
                 dtype=torch.float32) -> dict[str, Any]:
     """Seeded random parameters in the reference's names and layouts:
@@ -262,42 +324,27 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None,
     lecun normal counts it for a 3-d kernel. Drawn on the CPU from one
     ``torch.Generator`` (the same numbers on every device), then moved."""
     gen = torch.Generator().manual_seed(int(seed))
-
-    def normal(shape, std):
-        return (torch.randn(shape, generator=gen) * std).to(
-            device=device, dtype=dtype)
-
-    def ones(n):
-        return torch.ones(n, device=device, dtype=torch.float32)
-
-    d, hd = cfg.dim, cfg.head_dim
-    kv = cfg.num_kv_heads * hd
-    hidden = cfg.mlp_ratio * d
-    params: dict[str, Any] = {
-        "embed": {"embedding": normal((cfg.vocab, d), d ** -0.5)}}
-    e = cfg.moe_experts
-    for i in range(cfg.layers):
-        blk = {
-            "RMSNorm_0": {"scale": ones(d)},
-            "q_proj": {"kernel": normal((d, d), d ** -0.5)},
-            "k_proj": {"kernel": normal((d, kv), d ** -0.5)},
-            "v_proj": {"kernel": normal((d, kv), d ** -0.5)},
-            "proj": {"kernel": normal((d, d), d ** -0.5)},
-            "RMSNorm_1": {"scale": ones(d)},
-        }
-        if is_moe_block(cfg, i):
-            blk["moe"] = {
-                "router": {"kernel": (torch.randn((d, e), generator=gen)
-                                      * d ** -0.5).to(device=device)},
-                "experts_up": normal((e, d, hidden), (e * d) ** -0.5),
-                "experts_down": normal((e, hidden, d), (e * hidden) ** -0.5),
-            }
+    params: dict[str, Any] = {}
+    for path, shape, init in _leaf_specs(cfg):
+        if init is None:
+            leaf = torch.ones(shape, device=device, dtype=torch.float32)
+        elif init == "router":
+            leaf = (torch.randn(shape, generator=gen)
+                    * cfg.dim ** -0.5).to(device=device)
         else:
-            blk["up"] = {"kernel": normal((d, hidden), d ** -0.5)}
-            blk["down"] = {"kernel": normal((hidden, d), hidden ** -0.5)}
-        params[f"block_{i}"] = blk
-    params["final_norm"] = {"scale": ones(d)}
+            leaf = (torch.randn(shape, generator=gen) * init).to(
+                device=device, dtype=dtype)
+        _set(params, path, leaf)
     return params
+
+
+def lm_placements(cfg: LMConfig, mesh) -> dict[str, tuple]:
+    """Each parameter's placement on ``mesh`` (``param_sharding`` with
+    :data:`LM_TP_RULES`), keyed by its ``flatten`` path."""
+    return {path: param_sharding(mesh, tuple(path.split("/")),
+                                 torch.empty(shape, device="meta"),
+                                 tp_rules=LM_TP_RULES)
+            for path, shape, _ in _leaf_specs(cfg)}
 
 
 def param_count(params: dict[str, Any]) -> int:
@@ -319,39 +366,115 @@ def _plain_attention(window: int | None) -> AttnImpl:
     return plain
 
 
+class TensorParallel:
+    """The block's projections on a mesh whose ``tp`` axis shards them
+    (Megatron's layout, :data:`LM_TP_RULES`), run on plain local tensors
+    with the collectives written out.
+
+    Where a block's column kernels (q/k/v, up) and its row kernel (proj,
+    down) are all sharded on whole heads (heads and kv heads divide by
+    tp; the hidden width for the MLP), each rank computes its own heads:
+    :class:`CopyToGroup` before the column products (the input's
+    gradient is all-reduced), :class:`ReduceFromGroup` after the row
+    product (its f32 partial sums are all-reduced, then rounded to the
+    dtype, as one product is). Elsewhere (4 heads at tp=8: a column
+    shard cuts a head) the sharded column outputs are gathered over tp
+    (:class:`GatherFromGroup`), attention runs on every head, replicated,
+    and the row product takes this rank's columns of its input
+    (:class:`ScatterToGroup`). A kernel that ``param_sharding`` left
+    replicated (its dim does not divide by tp) is a plain product."""
+
+    def __init__(self, cfg: LMConfig, mesh, placements: dict):
+        tp = mesh.shape["tp"]
+        self.cfg, self.group = cfg, mesh.group("tp")
+        self.sharded = {name: "tp" in placements[f"block_0/{name}/kernel"]
+                        for name in LM_TP_RULES}
+        self.local = {
+            "attention": (all(self.sharded[n] for n in
+                              ("q_proj", "k_proj", "v_proj", "proj"))
+                          and cfg.heads % tp == 0
+                          and cfg.num_kv_heads % tp == 0),
+            "mlp": self.sharded["up"] and self.sharded["down"]}
+
+    def column(self, h, p, names, part: str) -> list:
+        """``h @ kernel`` for each column kernel of ``names``: this
+        rank's heads or hidden units when ``part`` runs local, else the
+        whole output on every rank."""
+        dtype = self.cfg.dtype
+        h_tp = (CopyToGroup.apply(h, self.group)
+                if any(self.sharded[n] for n in names) else None)
+        outs = []
+        for name in names:
+            w = p[name]["kernel"]
+            if not self.sharded[name]:
+                outs.append(_dense(h, w, dtype))
+                continue
+            y = _dense(h_tp, w, dtype)
+            if not self.local[part]:
+                y = GatherFromGroup.apply(y, -1, self.group)
+            outs.append(y)
+        return outs
+
+    def row(self, x, p, name: str, part: str):
+        """``x @ kernel`` for a row kernel; ``x`` holds this rank's
+        columns when ``part`` runs local, else all of them."""
+        dtype, w = self.cfg.dtype, p[name]["kernel"]
+        if not self.sharded[name]:
+            return _dense(x, w, dtype)
+        if not self.local[part]:
+            x = ScatterToGroup.apply(x, -1, self.group)
+        partial = x.to(dtype).float() @ w.to(dtype).float()
+        return ReduceFromGroup.apply(partial, self.group).to(dtype)
+
+
 class Block:
     """Pre-norm block: attention (GQA, RoPE, causal) + dense tanh-GELU
     FFN, or the MoE layer (``use_moe``), applied to one ``block_<i>``
     parameter dict. ``attn_impl`` is the attention core; without one,
-    :func:`_plain_attention`. ``sow`` receives the MoE intermediates."""
+    :func:`_plain_attention`. ``tp`` runs the projections tensor-parallel
+    (:class:`TensorParallel`); ``offset`` is the global position of the
+    first row (a sequence shard's RoPE). ``sow`` receives the MoE
+    intermediates."""
 
-    def __init__(self, cfg: LMConfig, attn_impl: AttnImpl | None = None):
+    def __init__(self, cfg: LMConfig, attn_impl: AttnImpl | None = None,
+                 tp: TensorParallel | None = None):
         self.cfg = cfg
         self.attn_impl = attn_impl or _plain_attention(cfg.attn_window)
+        self.tp = tp
+
+    def _column(self, h, p, names, part):
+        if self.tp is None:
+            return [_dense(h, p[n]["kernel"], self.cfg.dtype) for n in names]
+        return self.tp.column(h, p, names, part)
+
+    def _row(self, x, p, name, part):
+        if self.tp is None:
+            return _dense(x, p[name]["kernel"], self.cfg.dtype)
+        return self.tp.row(x, p, name, part)
 
     def __call__(self, p: dict[str, Any], x, segment_ids=None,
-                 use_moe: bool = False, sow: dict | None = None):
+                 use_moe: bool = False, sow: dict | None = None,
+                 offset: int = 0):
         cfg = self.cfg
         b, s, _ = x.shape
         h = rms_norm(p["RMSNorm_0"]["scale"], x)
-        q = _dense(h, p["q_proj"]["kernel"], cfg.dtype)
-        k = _dense(h, p["k_proj"]["kernel"], cfg.dtype)
-        v = _dense(h, p["v_proj"]["kernel"], cfg.dtype)
+        q, k, v = self._column(h, p, ("q_proj", "k_proj", "v_proj"),
+                               "attention")
 
-        def heads(t, n):
-            return t.reshape(b, s, n, cfg.head_dim).transpose(1, 2)
+        def heads(t):
+            return t.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
 
-        q = apply_rope(heads(q, cfg.heads))
-        k = apply_rope(heads(k, cfg.num_kv_heads))
-        v = heads(v, cfg.num_kv_heads)
-        out = self.attn_impl(q, k, v, causal=True, segment_ids=segment_ids)
-        out = out.transpose(1, 2).reshape(b, s, cfg.dim)
-        x = x + _dense(out, p["proj"]["kernel"], cfg.dtype)
+        q = apply_rope(heads(q), offset=offset)
+        k = apply_rope(heads(k), offset=offset)
+        out = self.attn_impl(q, k, heads(v), causal=True,
+                             segment_ids=segment_ids)
+        out = out.transpose(1, 2).reshape(b, s, -1)
+        x = x + self._row(out, p, "proj", "attention")
         h = rms_norm(p["RMSNorm_1"]["scale"], x)
         if use_moe:
             return x + moe_ffn(cfg, p["moe"], h, sow)
-        h = gelu(_dense(h, p["up"]["kernel"], cfg.dtype))
-        return x + _dense(h, p["down"]["kernel"], cfg.dtype)
+        h, = self._column(h, p, ("up",), "mlp")
+        return x + self._row(gelu(h), p, "down", "mlp")
 
 
 class TransformerLM:
@@ -363,90 +486,185 @@ class TransformerLM:
     ``return_intermediates`` also returns what the MoE blocks sow (the
     reference's ``mutable=["intermediates"]``): ``{"block_<i>":
     {"moe_aux", "moe_expert_load", "moe_slot_max"}}``, ``moe_aux`` for
-    top-k routing only; empty for a dense model."""
+    top-k routing only; empty for a dense model.
 
-    def __init__(self, cfg: LMConfig, attn_impl: AttnImpl | None = None):
+    On a ``mesh`` (``build_lm(cfg, mesh)``) the model holds each
+    parameter's placement (:func:`lm_placements`) and
+    ``model(params, tokens)`` takes this rank's parameter shards and
+    whole sequences: rows of its choosing (the train step gives it its
+    (dp, fsdp) rows), every column. It returns those rows at this rank's
+    sp columns. ``model(params, ...)`` is :meth:`forward` on
+    :meth:`gather`'s weights."""
+
+    def __init__(self, cfg: LMConfig, attn_impl: AttnImpl | None = None,
+                 mesh=None):
         self.cfg = cfg
-        self.block = Block(cfg, attn_impl)
+        self.mesh = mesh
+        self.placements = None if mesh is None else lm_placements(cfg, mesh)
+        tp = None if mesh is None else TensorParallel(cfg, mesh,
+                                                      self.placements)
+        self.block = Block(cfg, attn_impl, tp)
+
+    def gather(self, params: dict[str, Any]) -> dict[str, Any]:
+        """The weights a rank computes with: its parameter shards, each
+        fsdp-sharded one all-gathered over fsdp (a new tensor that
+        requires grad; its gradient is this rank's whole-leaf gradient,
+        which the train step reduce-scatters). Meshless: ``params``."""
+        if self.mesh is None:
+            return params
+        return gather_fsdp(self.mesh, params, self.placements)
 
     def __call__(self, params: dict[str, Any], tokens, segment_ids=None,
                  return_hidden=False, return_intermediates=False):
+        return self.forward(self.gather(params), tokens, segment_ids,
+                            return_hidden, return_intermediates)
+
+    def forward(self, weights: dict[str, Any], tokens, segment_ids=None,
+                return_hidden=False, return_intermediates=False):
+        """The forward on gathered ``weights``: (rows, S) tokens -> (rows,
+        S / sp, vocab) f32 logits (or hidden states) at this rank's
+        sequence shard, RoPE at its global positions; meshless, the whole
+        sequence from position 0."""
         cfg = self.cfg
         if segment_ids is not None:
             check_segment_ids(segment_ids)
-        emb = params["embed"]["embedding"]
-        x = emb[tokens].to(cfg.dtype)
+        cols = (slice(0, tokens.shape[1]) if self.mesh is None
+                else self.mesh.slice("sp", tokens.shape[1]))
+        emb = weights["embed"]["embedding"]
+        x = emb[tokens[:, cols]].to(cfg.dtype)
+        seg = None if segment_ids is None else segment_ids[:, cols]
         intermediates: dict[str, dict] = {}
         for i in range(cfg.layers):
             use_moe = is_moe_block(cfg, i)
             sow = None
             if use_moe and return_intermediates:
                 sow = intermediates.setdefault(f"block_{i}", {})
-            x = self.block(params[f"block_{i}"], x, segment_ids,
-                           use_moe=use_moe, sow=sow)
-        x = rms_norm(params["final_norm"]["scale"], x)
+            x = self.block(weights[f"block_{i}"], x, seg, use_moe=use_moe,
+                           sow=sow, offset=cols.start)
+        x = rms_norm(weights["final_norm"]["scale"], x)
         out = x if return_hidden else tied_head(x, emb, cfg.dtype)
         return (out, intermediates) if return_intermediates else out
 
 
+def check_tp_layout(cfg: LMConfig, mesh) -> None:
+    """Reject GQA configs whose kv heads cannot cut cleanly over tp.
+
+    With explicit GQA, Megatron column-sharding should cut k/v on
+    whole-kv-head boundaries; kv_heads < tp would either split a kv head
+    across devices or silently replicate the k/v kernels while q stays
+    sharded. (Plain MHA keeps the reference's behaviour: tp may
+    subdivide head_dim; the model then gathers q/k/v over tp.)"""
+    if (
+        mesh is not None
+        and mesh.shape.get("tp", 1) > 1
+        and cfg.kv_heads is not None
+        and cfg.kv_heads != cfg.heads
+        and cfg.kv_heads % mesh.shape["tp"]
+    ):
+        raise ValueError(
+            f"kv_heads={cfg.kv_heads} must be divisible by "
+            f"tp={mesh.shape['tp']} for the Megatron layout"
+        )
+
+
+def _refuse_unported(cfg: LMConfig, mesh) -> None:
+    refuse_unported_axes(mesh)
+    if cfg.moe_experts:
+        raise NotImplementedError(
+            "MoE on a mesh (expert-parallel dispatch) belongs to a later "
+            "slice of the port (ROADMAP A10c)")
+
+
 def build_lm(cfg: LMConfig, mesh=None,
              use_flash: bool | None = None) -> TransformerLM:
-    """Pick the attention core: the flash kernels (``use_flash=True``;
-    their plain twins on CPU tensors), :func:`_plain_attention`
-    (``use_flash=False``), or, by default, the kernels for CUDA tensors
-    and the plain core for CPU tensors, as the reference takes its
-    kernel whenever it runs on the accelerator. On a CUDA tensor the
-    kernels run or raise (a dtype or head dim they were not built for);
-    nothing falls back. The config's window applies either way."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "meshes (ring attention, tp/fsdp) belong to the parallel/ "
-            "slice of the port (ROADMAP A10)")
-    if use_flash is False:
-        return TransformerLM(cfg)
+    """Pick the attention core: ring attention over the mesh's ``sp``
+    group when sp > 1 (:func:`ring_attention`); else the flash kernels
+    (``use_flash=True``; their plain twins on CPU tensors),
+    :func:`_plain_attention` (``use_flash=False``), or, by default, the
+    kernels for CUDA tensors and the plain core for CPU tensors, as the
+    reference takes its kernel whenever it runs on the accelerator. On a
+    CUDA tensor the kernels run or raise (a dtype or head dim they were
+    not built for); nothing falls back. The config's window applies
+    either way. On a tp mesh the kernels see each rank's local heads."""
+    check_tp_layout(cfg, mesh)
     window = cfg.attn_window
+    if mesh is not None:
+        _refuse_unported(cfg, mesh)
+        if mesh.shape["sp"] > 1:
+            group = mesh.group("sp")
+
+            def ring(q, k, v, causal=True, segment_ids=None):
+                return ring_attention(q, k, v, group=group, causal=causal,
+                                      window=window, segment_ids=segment_ids)
+
+            return TransformerLM(cfg, attn_impl=ring, mesh=mesh)
+    if use_flash is False:
+        return TransformerLM(cfg, mesh=mesh)
 
     def flash(q, k, v, causal=True, segment_ids=None):
         # TransformerLM checked the segment order once for the batch.
         return _attend(q, k, v, causal, window, segment_ids)
 
     if use_flash:
-        return TransformerLM(cfg, attn_impl=flash)
+        return TransformerLM(cfg, attn_impl=flash, mesh=mesh)
     plain = _plain_attention(window)
 
     def auto(q, k, v, causal=True, segment_ids=None):
         return (flash if q.is_cuda else plain)(q, k, v, causal=causal,
                                                segment_ids=segment_ids)
 
-    return TransformerLM(cfg, attn_impl=auto)
+    return TransformerLM(cfg, attn_impl=auto, mesh=mesh)
 
 
-def lm_loss(logits, tokens, segment_ids=None):
-    """Next-token cross entropy in f32: predict tokens[:, 1:] from
-    logits[:, :-1]. With ``segment_ids`` (packed batches), positions
-    whose target falls in a different document are excluded."""
-    vocab = logits.shape[-1]
-    ce = F.cross_entropy(logits[:, :-1].reshape(-1, vocab).float(),
-                         tokens[:, 1:].reshape(-1).long(),
-                         reduction="none").reshape(tokens.shape[0], -1)
-    if segment_ids is None:
-        return ce.mean()
-    valid = (segment_ids[:, 1:] == segment_ids[:, :-1]).to(ce.dtype)
-    return (ce * valid).sum() / valid.sum().clamp_min(1.0)
+def lm_loss(logits, tokens=None, segment_ids=None, *, targets=None,
+            valid=None, count=None):
+    """Next-token cross entropy in f32: every position predicts its
+    target (``ops.cross_entropy.next_token_targets`` of ``tokens`` and
+    ``segment_ids``: the next token of its own document; packed
+    batches' cross-document positions and each row's last are left
+    out) and the loss is ``masked_mean`` over ``count``, by default the
+    batch's own.
+
+    A sequence shard passes ``targets`` and ``valid`` instead ((B, S),
+    from the whole batch and sliced like ``logits``) and the whole
+    batch's ``count``; ``tokens`` and ``segment_ids`` are then not
+    read."""
+    if targets is None:
+        targets, valid = next_token_targets(tokens, segment_ids)
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                         targets.reshape(-1).long(), reduction="none")
+    return masked_mean(ce, valid.reshape(-1), count)
 
 
 def create_lm_state(model: TransformerLM, seed: int = 0, tx=None,
-                    device=None):
+                    device=None, mesh=None):
     """TrainState for the LM: f32 parameters from ``init_params`` with a
     seeded generator, on the card unless ``device="cpu"``, and AdamW by
     default, as the reference's ``optax.adamw(3e-4, weight_decay=0.01,
-    mu_dtype=bfloat16)``."""
+    mu_dtype=bfloat16)``.
+
+    With a ``mesh`` (the model's, ``build_lm(cfg, mesh)``) the state is
+    initialised whole from the same seed in host memory, then each rank
+    moves only its shard of every leaf to the mesh's device, at
+    ``param_sharding(..., tp_rules=LM_TP_RULES)``, the optimizer moments
+    at their parameter's placement; ``state.placements`` records them
+    (``shard_state``)."""
     tx = tx or AdamW(3e-4, weight_decay=0.01, mu_dtype=torch.bfloat16)
+    if mesh is not None:
+        if model.mesh is not mesh:
+            raise ValueError("create_lm_state(mesh=) needs the model built "
+                             "on that mesh: build_lm(cfg, mesh)")
+        device = "cpu"
     params = trainable(init_params(model.cfg, seed=seed,
                                    device=resolve_device(device),
                                    dtype=torch.float32))
-    return TrainState(step=0, params=params, opt_state=tx.init(params),
-                      tx=tx, apply_fn=model)
+    state = TrainState(step=0, params=params, opt_state=tx.init(params),
+                       tx=tx, apply_fn=model)
+    if mesh is None:
+        return state
+    from kubeflow_tpu_torch.models.convert import shard_state
+
+    return shard_state(state, mesh, tp_rules=LM_TP_RULES, apply_fn=model)
 
 
 # The "auto" loss crossover of the reference (a sequence length): the
@@ -454,11 +672,20 @@ def create_lm_state(model: TransformerLM, seed: int = 0, tx=None,
 AUTO_FUSED_MIN_SEQ = 8192
 
 
+def _fused(cfg: LMConfig, seq: int) -> bool:
+    return cfg.loss_impl == "fused" or (
+        cfg.loss_impl == "auto" and seq >= AUTO_FUSED_MIN_SEQ)
+
+
 def moe_aux_total(intermediates: dict[str, dict]):
     """The sum of the sowed ``moe_aux`` values ONLY: the diagnostics
     (``moe_expert_load``, ``moe_slot_max``) never reach the loss."""
     return sum(sown["moe_aux"] for sown in intermediates.values()
                if "moe_aux" in sown)
+
+
+# The axes that split an LM batch: rows over (dp, fsdp), columns over sp.
+LM_DATA_AXES = ("dp", "fsdp", "sp")
 
 
 def make_lm_train_step(mesh=None, moe_aux_weight: float | None = None,
@@ -474,39 +701,85 @@ def make_lm_train_step(mesh=None, moe_aux_weight: float | None = None,
     rows, as the reference dispatches. For an MoE model (the state's
     ``apply_fn`` config) the loss adds ``moe_aux_weight`` times the sum
     of the blocks' ``moe_aux``: the weight is ``cfg.moe_aux_weight``
-    unless given here, and the LMConfig default with neither."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded training belongs to the parallel/ slice of the port "
-            "(ROADMAP A10)")
+    unless given here, and the LMConfig default with neither.
+
+    With a ``mesh`` the state must be on it (``create_lm_state(mesh=)``
+    or ``shard_state``) and every rank passes the WHOLE batch, as the
+    reference's step takes a global array. The step keeps this rank's
+    (dp, fsdp) rows and sp columns and runs the collectives by hand:
+
+    - the loss's targets and valid mask come from the whole batch
+      (``next_token_targets``): a shard's last position predicts the
+      first token of the next sp shard, and the globally last position
+      predicts nothing; each rank's loss is its positions' NLL sum over
+      the WHOLE batch's count, so the ranks' losses sum to the global
+      mean (reported all-reduced over dp, fsdp and sp);
+    - fsdp: the model all-gathers its sharded weights before use
+      (``TransformerLM.gather``), and their gradients are
+      reduce-scattered after the backward;
+    - tp: Megatron's conjugate pair inside each block
+      (:class:`TensorParallel`);
+    - dp and sp (and fsdp for leaves it does not shard): the gradients
+      are all-reduced over the axes that split the batch and the
+      sequence, never over tp, where the conjugate pair already made the
+      replicated leaves' gradients whole and equal;
+    - AdamW then runs on each rank's shards.
+
+    Every collective of the backward runs inside a block (tp) or on the
+    ring (sp); the fsdp, dp and sp reductions come after it, in the
+    parameters' order, so ranks whose ring skips other hops (their
+    packed rows differ) cannot wait on each other out of order.
+    Meshless, the same step runs on the whole batch with no collective."""
     loss_cfg = cfg or LMConfig()
     if moe_aux_weight is None:
         moe_aux_weight = loss_cfg.moe_aux_weight
+    if mesh is not None:
+        _refuse_unported(loss_cfg, mesh)
 
     def step(state, batch):
-        tokens = batch["tokens"]
-        seg = batch.get("segment_ids")
-        fused = loss_cfg.loss_impl == "fused" or (
-            loss_cfg.loss_impl == "auto"
-            and tokens.shape[1] >= AUTO_FUSED_MIN_SEQ)
-        moe = getattr(getattr(state.apply_fn, "cfg", None), "moe_experts", 0)
-        leaves = [t for _, t in flatten(state.params)]
-        out = state.apply_fn(state.params, tokens, seg, return_hidden=fused,
-                             **({"return_intermediates": True} if moe
-                                else {}))
-        out, intermediates = out if moe else (out, {})
-        if fused:
-            loss = fused_lm_loss(out, state.params["embed"]["embedding"],
-                                 tokens, seg, block=loss_cfg.ce_block)
+        model = state.apply_fn
+        if getattr(model, "mesh", None) is not mesh:
+            raise ValueError("the state is not on this mesh: "
+                             "create_lm_state(model, mesh=mesh) or "
+                             "shard_state(state, mesh, LM_TP_RULES)")
+        tokens, seg = batch["tokens"], batch.get("segment_ids")
+        targets, valid = next_token_targets(tokens, seg)
+        rows = cols = slice(None)
+        if mesh is not None:
+            rows = mesh.slice(("dp", "fsdp"), tokens.shape[0])
+            cols = mesh.slice("sp", tokens.shape[1])
+            seg = None if seg is None else seg[rows]
+        shard = {"targets": targets[rows, cols], "valid": valid[rows, cols],
+                 "count": valid.sum().clamp_min(1.0)}
+        fused = _fused(loss_cfg, tokens.shape[1])
+        moe = getattr(getattr(model, "cfg", None), "moe_experts", 0)
+        if mesh is None:
+            weights, forward = state.params, model
         else:
-            loss = lm_loss(out, tokens, seg)
+            weights, forward = model.gather(state.params), model.forward
+        out, intermediates = forward(weights, tokens[rows], seg,
+                                     return_hidden=fused,
+                                     return_intermediates=True)
+        if fused:
+            loss = fused_lm_loss(out, weights["embed"]["embedding"],
+                                 block=loss_cfg.ce_block, **shard)
+        else:
+            loss = lm_loss(out, **shard)
         if moe:
             loss = loss + moe_aux_weight * moe_aux_total(intermediates)
-        grads = torch.autograd.grad(loss, leaves)
+        paths = [path for path, _ in flatten(weights)]
+        grads = torch.autograd.grad(loss, [t for _, t in flatten(weights)])
+        if mesh is not None:
+            grads = reduce_gradients(mesh, grads,
+                                     [model.placements[p] for p in paths],
+                                     LM_DATA_AXES)
         with torch.no_grad():
             state.tx.update(grads, state.opt_state, state.params)
+        loss = loss.detach()
+        if mesh is not None:
+            loss = all_reduce(loss.clone(), mesh.group(LM_DATA_AXES))
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, {"loss": loss}
 
     return step
 
@@ -514,4 +787,5 @@ def make_lm_train_step(mesh=None, moe_aux_weight: float | None = None,
 __all__ = ["LMConfig", "TransformerLM", "Block", "rms_norm", "tied_head",
            "gelu", "init_params", "param_count", "build_lm", "lm_loss",
            "create_lm_state", "make_lm_train_step", "AUTO_FUSED_MIN_SEQ",
-           "is_moe_block", "moe_ffn", "moe_aux_total"]
+           "is_moe_block", "moe_ffn", "moe_aux_total", "LM_TP_RULES",
+           "check_tp_layout", "lm_placements", "TensorParallel"]

@@ -2,9 +2,9 @@
 
 Each kernel module holds a wrapper that launches the CUDA kernel on a
 CUDA tensor (or raises) and runs the plain PyTorch version beside it on
-a CPU tensor. ``cross_entropy`` holds no kernel: the vocab-tiled loss is
-torch GEMMs, as the reference's is XLA outside any Pallas kernel. Ring
-attention belongs to a later slice.
+a CPU tensor. ``cross_entropy`` and ``ring`` hold no kernel: the vocab-tiled
+loss and ring attention's hops are torch products, as the reference's
+are XLA outside any Pallas kernel.
 """
 
 from kubeflow_tpu_torch.ops.attention import (
@@ -15,7 +15,12 @@ from kubeflow_tpu_torch.ops.attention import (
     flash_forward,
     mha_reference,
 )
-from kubeflow_tpu_torch.ops.cross_entropy import fused_ce, fused_lm_loss
+from kubeflow_tpu_torch.ops.cross_entropy import (
+    fused_ce,
+    fused_lm_loss,
+    next_token_targets,
+)
+from kubeflow_tpu_torch.ops.ring import make_ring_attention, ring_attention
 
 __all__ = [
     "flash_attention",
@@ -26,4 +31,7 @@ __all__ = [
     "apply_rope",
     "fused_ce",
     "fused_lm_loss",
+    "next_token_targets",
+    "ring_attention",
+    "make_ring_attention",
 ]

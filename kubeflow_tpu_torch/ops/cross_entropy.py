@@ -138,21 +138,53 @@ def fused_ce(x, emb, targets, block: int = 4096, compute_dtype=None):
     return _FusedCE.apply(x, emb, targets.long(), int(block), compute_dtype)
 
 
-def fused_lm_loss(hidden, embedding, tokens, segment_ids=None,
-                  block: int = 4096, compute_dtype=None):
+def next_token_targets(tokens, segment_ids=None):
+    """(targets, valid) of the next-token loss at EVERY position of a
+    (B, S) batch: ``targets[:, p] = tokens[:, p + 1]``, ``valid`` 1.0
+    where position p has a target in its own document and 0.0 at the
+    last position (whose target would lie past the batch) and where the
+    next token starts another document. A sequence shard of these
+    predicts across its own last position into the next shard, which a
+    shard of ``tokens`` alone cannot."""
+    targets = F.pad(tokens[:, 1:], (0, 1))
+    valid = torch.ones(tokens.shape, dtype=torch.float32,
+                       device=tokens.device)
+    valid[:, -1] = 0.0
+    if segment_ids is not None:
+        valid[:, :-1] *= (segment_ids[:, 1:] == segment_ids[:, :-1]).float()
+    return targets, valid
+
+
+def masked_mean(nll, valid, count=None):
+    """``sum(nll * valid) / count``: ``count`` is the number of valid
+    positions over the WHOLE batch (a shard's loss is its part of the
+    global mean, which a mean of shard means is not when the counts
+    differ); without it, this batch's own count, at least 1."""
+    if count is None:
+        count = valid.sum().clamp_min(1.0)
+    return (nll * valid).sum() / count
+
+
+def fused_lm_loss(hidden, embedding, tokens=None, segment_ids=None,
+                  block: int = 4096, compute_dtype=None, *, targets=None,
+                  valid=None, count=None):
     """Next-token cross entropy from the pre-head hidden states (B, S,
-    D): predict tokens[:, 1:] from hidden[:, :-1] without building the
-    (B, S, vocab) logits. Packed batches as ``lm_loss``: positions whose
-    target falls in another document are left out of the mean."""
+    D) without building the (B, S, vocab) logits: every position
+    predicts its target (:func:`next_token_targets` of ``tokens`` and
+    ``segment_ids``: the next token of its own document) and the loss is
+    :func:`masked_mean` over ``count``, by default the batch's own.
+
+    A sequence shard passes ``targets`` and ``valid`` instead ((B, S),
+    from :func:`next_token_targets` of the whole batch and sliced like
+    ``hidden``) and the whole batch's ``count``; ``tokens`` and
+    ``segment_ids`` are then not read."""
     b, s, d = hidden.shape
-    x = hidden[:, :-1].reshape(b * (s - 1), d)
-    targets = tokens[:, 1:].reshape(b * (s - 1))
-    nll = fused_ce(x, embedding, targets, block, compute_dtype)
-    if segment_ids is None:
-        return nll.mean()
-    valid = (segment_ids[:, 1:] == segment_ids[:, :-1]).reshape(-1)
-    valid = valid.to(nll.dtype)
-    return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+    if targets is None:
+        targets, valid = next_token_targets(tokens, segment_ids)
+    nll = fused_ce(hidden.reshape(b * s, d), embedding,
+                   targets.reshape(b * s), block, compute_dtype)
+    return masked_mean(nll, valid.reshape(b * s), count)
 
 
-__all__ = ["fused_ce", "fused_lm_loss", "NEG_INF"]
+__all__ = ["fused_ce", "fused_lm_loss", "next_token_targets",
+           "masked_mean", "NEG_INF"]

@@ -1,0 +1,321 @@
+#!/usr/bin/env python3
+"""Check the port's mesh training across the cards of one host, NCCL
+between real ranks: a fault check, not a timing.
+
+One process per card, started the way torchrun starts them (pod rank 0,
+``LOCAL_WORLD_SIZE`` = cards, ``LOCAL_RANK`` = the card), each forming
+the world with ``initialize_from_env`` (NCCL, coordinator
+``127.0.0.1:<free port>``). For each mesh spec below every rank takes
+one step on the mesh and the same step without a mesh on its own card
+on the whole batch, from the same seed, and compares them:
+
+- LM in f32 (the plain attention core, TF32 off; ring attention under
+  sp): the loss within 1e-5 relative, each leaf's gradient within 1e-4
+  and each leaf's AdamW update (parameters after the step minus before)
+  within 1e-4 in relative norm. These are the CPU tests' limits; f32
+  summation order moves them by ~1e-6. Dropping the 3 shard-boundary
+  positions of each 1024-token row under sp=4 (a next-token shift that
+  stops at the shard) moves the loss by 3.6e-5 and a gradient by 5.6e-2
+  at this size in f32. The optimizer here (F32_LR, F32_EPS, f32
+  moments) makes the update a smooth function of the gradient and large
+  beside the parameters' f32 spacing; with the default eps a first AdamW
+  step is lr * sign(g), which flips wherever rounding crosses zero, and
+  at lr 3e-4 a norm scale of 1 moves in steps of 4e-4 of its update.
+- LM in bf16 (the flash kernels on each rank's local heads): the loss
+  within 1e-4 relative, each gradient within 5e-2 in relative norm
+  (bf16 rounding lands differently when a product is split over ranks
+  or a ring hop replaces the flash kernel). The update is printed, not
+  held: a first AdamW step is lr * sign(g), which flips with that
+  rounding.
+- ResNet (resnet18, f32, TF32 off): the loss within 1e-5, every leaf of
+  params and batch_stats within 1e-4 in relative norm.
+- Memory, on the cards: each rank's state bytes at rest, and its peak
+  allocation over the state's creation and over one step, above what
+  was allocated before, for the train phase's LM (8 x 1024, vocab
+  32768, bf16, batch 4 x 512), mesh and meshless. Printed, not held.
+
+Rank 0 prints one JSON line per spec and the card's name and power
+limit; the script exits 1 if any held check fails.
+
+Run from the root of a checkout on a host with 2 to 8 cards and nvcc:
+``python3 testing/torch_mesh_check.py [cards]`` (default 4). With
+``--cpu`` the same runs on 4 gloo ranks on the CPU at a small size (the
+kernels' plain twins, no memory readings), as a rehearsal.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+LR = 3e-4
+# (loss rtol, gradient rtol, update rtol or None) per LM precision.
+LM_LIMITS = {"f32": (1e-5, 1e-4, 1e-4), "bf16": (1e-4, 5e-2, None)}
+# The f32 check's AdamW: a first step is lr * g / (|g| + eps) (f32
+# moments). eps above the gradients' rounding keeps it smooth in g; an
+# lr far above the parameters' f32 spacing (2^-23 at a norm scale of 1)
+# keeps p + update from rounding by more than the gradients differ.
+F32_LR, F32_EPS = 0.1, 1e-3
+RESNET_LOSS_RTOL, RESNET_RTOL = 1e-5, 1e-4
+# Mesh specs per world size (dp takes what is left).
+SPECS = {
+    4: [dict(dp=4), dict(dp=1, fsdp=4), dict(dp=1, tp=4), dict(dp=1, sp=4),
+        dict(dp=2, sp=2), dict(dp=1, fsdp=2, tp=2)],
+    2: [dict(dp=2), dict(dp=1, fsdp=2), dict(dp=1, tp=2), dict(dp=1, sp=2)],
+}
+
+
+def lm_config(torch, precision: str, cpu: bool):
+    from kubeflow_tpu_torch.models import LMConfig
+
+    dtype = torch.float32 if precision == "f32" else torch.bfloat16
+    if cpu:
+        return LMConfig(vocab=256, layers=2, dim=64, heads=4,
+                        dtype=dtype), (8, 64)
+    return LMConfig(vocab=8192, layers=2, dim=512, heads=4,
+                    dtype=dtype), (8, 1024)
+
+
+def rel(a, b) -> float:
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+class Recording:
+    """The wrapped optimizer, keeping the gradients it is given."""
+
+    def __init__(self, tx):
+        self.tx, self.grads = tx, None
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = [g.detach().clone() for g in grads]
+        self.tx.update(grads, state, params)
+
+
+def lm_check(torch, mesh, precision: str, cpu: bool) -> dict:
+    from kubeflow_tpu_torch.models import (
+        AdamW,
+        build_lm,
+        create_lm_state,
+        gather_state,
+        init_params,
+        make_lm_train_step,
+    )
+    from kubeflow_tpu_torch.models.optim import flatten
+    from kubeflow_tpu_torch.parallel import gather_block
+
+    cfg, shape = lm_config(torch, precision, cpu)
+    gen = torch.Generator(device=mesh.device).manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab, shape, generator=gen,
+                           device=mesh.device)
+    before = dict(flatten(init_params(cfg, seed=0, device=mesh.device)))
+    opt = (dict(lr=F32_LR, eps=F32_EPS, mu_dtype=torch.float32)
+           if precision == "f32" else dict(lr=LR, mu_dtype=torch.bfloat16))
+    runs = {}
+    for name, m in (("meshless", None), ("mesh", mesh)):
+        tx = Recording(AdamW(weight_decay=0.01, **opt))
+        model = build_lm(cfg, m, use_flash=None if precision == "bf16"
+                         else False)
+        state = create_lm_state(model, seed=0, tx=tx, mesh=m,
+                                device=mesh.device)
+        state, metrics = make_lm_train_step(m, cfg=cfg)(
+            state, {"tokens": tokens})
+        paths = [p for p, _ in flatten(state.params)]
+        grads = dict(zip(paths, tx.grads))
+        if m is not None:
+            grads = {p: gather_block(mesh, g, state.placements["params"][p])
+                     for p, g in grads.items()}
+            state = gather_state(state)
+        updates = {p: t.detach() - before[p]
+                   for p, t in flatten(state.params)}
+        runs[name] = (float(metrics["loss"]), grads, updates)
+    loss, grads, updates = runs["mesh"]
+    want_loss, want_grads, want_updates = runs["meshless"]
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    grad_err = max((rel(grads[p], want_grads[p]), p) for p in want_grads)
+    update_err = max((rel(updates[p], want_updates[p]), p)
+                     for p in want_updates)
+    loss_tol, grad_tol, update_tol = LM_LIMITS[precision]
+    return {"loss": loss, "meshless_loss": want_loss,
+            "loss_rel_err": loss_err,
+            "grad_rel_err_max": grad_err[0], "worst_grad": grad_err[1],
+            "update_rel_err_max": update_err[0],
+            "worst_update": update_err[1],
+            "limits": {"loss": loss_tol, "grad": grad_tol,
+                       "update": update_tol},
+            "ok": (loss_err <= loss_tol and grad_err[0] <= grad_tol
+                   and (update_tol is None or update_err[0] <= update_tol))}
+
+
+def lm_memory(torch, mesh) -> dict:
+    """Per rank, in MB: the state at rest, and the peak allocation over
+    the state's creation and over one step above what was allocated
+    before each, for the train phase's LM, mesh and meshless."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import (
+        LMConfig,
+        build_lm,
+        create_lm_state,
+        make_lm_train_step,
+    )
+    from kubeflow_tpu_torch.models.optim import flatten
+
+    cfg = LMConfig(vocab=32768, layers=8, dim=1024, heads=8,
+                   dtype=torch.bfloat16)
+    gen = torch.Generator(device=mesh.device).manual_seed(23)
+    tokens = torch.randint(0, cfg.vocab, (4, 512), generator=gen,
+                           device=mesh.device)
+    mb = 2.0 ** -20
+    out = {}
+    for name, m in (("meshless", None), ("mesh", mesh)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state = create_lm_state(build_lm(cfg, m), seed=0, mesh=m,
+                                device=mesh.device)
+        torch.cuda.synchronize()
+        create_peak = torch.cuda.max_memory_allocated() - base
+        leaves = [t for _, t in flatten(state.params)] + [
+            t for tree in (state.opt_state.mu, state.opt_state.nu)
+            for _, t in flatten(tree)]
+        at_rest = sum(t.numel() * t.element_size() for t in leaves)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, metrics = make_lm_train_step(m, cfg=cfg)(
+            state, {"tokens": tokens})
+        float(metrics["loss"])
+        step_peak = torch.cuda.max_memory_allocated() - base
+        mine = [round(at_rest * mb, 1), round(create_peak * mb, 1),
+                round(step_peak * mb, 1)]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, mine)
+        out[name] = {"state_mb": [r[0] for r in every],
+                     "create_peak_mb": [r[1] for r in every],
+                     "step_peak_mb": [r[2] for r in every]}
+        del state, metrics
+        torch.cuda.empty_cache()
+    return out
+
+
+def resnet_check(torch, mesh) -> dict:
+    from kubeflow_tpu_torch.models import (
+        create_train_state,
+        gather_state,
+        make_train_step,
+        resnet18,
+    )
+    from kubeflow_tpu_torch.models.optim import flatten
+
+    model = resnet18(num_classes=10, width=16, dtype=torch.float32)
+    gen = torch.Generator(device=mesh.device).manual_seed(19)
+    batch = {"image": torch.randn((16, 32, 32, 3), generator=gen,
+                                  device=mesh.device),
+             "label": torch.randint(0, 10, (16,), generator=gen,
+                                    device=mesh.device)}
+    runs = {}
+    for name, m in (("meshless", None), ("mesh", mesh)):
+        state = create_train_state(model, 0, (16, 32, 32, 3), mesh=m,
+                                   device=mesh.device)
+        state, metrics = make_train_step(m)(state, batch)
+        if m is not None:
+            state = gather_state(state)
+        runs[name] = (float(metrics["loss"]),
+                      {**{f"p/{k}": v.detach()
+                          for k, v in flatten(state.params)},
+                       **{f"s/{k}": v for k, v in
+                          flatten(state.batch_stats)}})
+    loss, leaves = runs["mesh"]
+    want_loss, want = runs["meshless"]
+    rms = (sum(float(v.detach().double().pow(2).sum())
+               for v in want.values())
+           / sum(v.numel() for v in want.values())) ** 0.5
+    err = max((float((leaves[k].double() - v.double()).norm())
+               / max(float(v.double().norm()),
+                     2.0 ** -8 * rms * v.numel() ** 0.5), k)
+              for k, v in want.items())
+    return {"loss": loss, "meshless_loss": want_loss,
+            "loss_rel_err": abs(loss - want_loss) / abs(want_loss),
+            "leaf_rel_err_max": err[0], "worst_leaf": err[1],
+            "ok": (abs(loss - want_loss) <= RESNET_LOSS_RTOL * abs(want_loss)
+                   and err[0] <= RESNET_RTOL)}
+
+
+def rank_main(cpu: bool) -> int:
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.parallel import (
+        MeshSpec,
+        initialize_from_env,
+        make_mesh,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = "cpu" if cpu else None
+    initialize_from_env(device=device)
+    ok = True
+    for spec in SPECS[dist.get_world_size()]:
+        mesh = make_mesh(MeshSpec(**spec), device=device)
+        line = {"spec": spec, "backend": dist.get_backend(),
+                "lm_f32": lm_check(torch, mesh, "f32", cpu),
+                "lm_bf16": lm_check(torch, mesh, "bf16", cpu),
+                "resnet": resnet_check(torch, mesh)}
+        ok = ok and all(line[k]["ok"] for k in ("lm_f32", "lm_bf16",
+                                                "resnet"))
+        if not cpu:
+            line["lm_memory"] = lm_memory(torch, mesh)
+        if dist.get_rank() == 0:
+            print(json.dumps(line), flush=True)
+    dist.destroy_process_group()
+    return 0 if ok else 1
+
+
+def main(argv: list[str]) -> int:
+    cpu = "--cpu" in argv
+    args = [a for a in argv if a != "--cpu"]
+    cards = 4 if cpu or not args else int(args[0])
+    if not cpu:
+        import torch
+
+        if torch.cuda.device_count() < cards:
+            print(f"needs {cards} cards, found {torch.cuda.device_count()}",
+                  file=sys.stderr)
+            return 2
+        from kubeflow_tpu_torch.ops import _build
+
+        _build.library()   # one build, before the ranks load it
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": str(REPO), "TPU_WORKER_ID": "0",
+           "KFT_NUM_PROCESSES": "1", "LOCAL_WORLD_SIZE": str(cards),
+           "KFT_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+           "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--rank"] + (["--cpu"] if cpu else []),
+        env={**env, "LOCAL_RANK": str(rank)}) for rank in range(cards)]
+    codes = [proc.wait(timeout=1200) for proc in procs]
+    if not cpu:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(), flush=True)
+    return 0 if not any(codes) else 1
+
+
+if __name__ == "__main__":
+    if "--rank" in sys.argv:
+        sys.exit(rank_main("--cpu" in sys.argv))
+    sys.exit(main(sys.argv[1:]))

@@ -988,3 +988,88 @@ def test_moe_decode_and_the_fallback_engine_on_the_card(card):
                          if e.get("done") else None, max_new_tokens=8)
     engine.drain()
     assert done["tokens"] == want[0].tolist()
+
+
+@pytest.fixture
+def card_mesh(card):
+    """A mesh at world 1 over the card: the NCCL world that ``make_mesh``
+    forms itself, torn down after the test."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.parallel import MeshSpec, make_mesh
+
+    mesh = make_mesh(MeshSpec())
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def test_lm_mesh_step_at_world_one_equals_the_meshless_step(card_mesh):
+    """A 2-layer bf16 LM (head dim 128: the flash kernels) one step on
+    the world-1 mesh and one without: the loss within 1e-5 relative (the
+    mesh path sums NLL over the batch's count where the meshless one
+    takes a mean), every leaf after the step within 1e-5 in relative
+    norm, one launch of each flash kernel a layer on both."""
+    from kubeflow_tpu_torch.models import (
+        LMConfig,
+        build_lm,
+        create_lm_state,
+        gather_state,
+        make_lm_train_step,
+    )
+    from kubeflow_tpu_torch.models.optim import flatten
+    from kubeflow_tpu_torch.ops import _build
+
+    cfg = LMConfig(vocab=512, layers=2, dim=256, heads=2,
+                   dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (2, 256), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(3))
+    runs = {}
+    for name, mesh in (("meshless", None), ("mesh", card_mesh)):
+        state = create_lm_state(build_lm(cfg, mesh), seed=0, mesh=mesh)
+        _build.reset_launches()
+        state, metrics = make_lm_train_step(mesh, cfg=cfg)(
+            state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        for kernel in ("flash_attention", "flash_dq", "flash_dkv"):
+            assert launches[kernel] == cfg.layers, (name, launches)
+        whole = gather_state(state) if mesh is not None else state
+        runs[name] = (float(metrics["loss"]),
+                      {k: v.detach() for k, v in flatten(whole.params)})
+    loss, params = runs["mesh"]
+    want_loss, want = runs["meshless"]
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    for path, p in params.items():
+        err = float((p - want[path]).norm() / want[path].norm())
+        assert err <= 1e-5, (path, err)
+
+
+def test_batch_norm_group_path_at_world_one_equals_the_groupless_path(
+        card_mesh):
+    """With a group of one (an NCCL all-reduce over one rank) the moments
+    and the backward's sums are the groupless ones bit for bit: outputs,
+    running statistics and all three gradients."""
+    from kubeflow_tpu_torch.models.resnet import batch_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((8, 16, 12, 12), generator=gen,
+                    device="cuda").bfloat16()
+    p = {"scale": torch.randn(16, generator=gen, device="cuda"),
+         "bias": torch.randn(16, generator=gen, device="cuda")}
+    stats = {"mean": torch.zeros(16, device="cuda"),
+             "var": torch.ones(16, device="cuda")}
+    g = torch.randn(x.shape, generator=gen, device="cuda").bfloat16()
+    out = {}
+    for name, group in (("none", None),
+                        ("group", card_mesh.group(("dp", "fsdp")))):
+        inputs = [t.clone().requires_grad_() for t in (x, p["scale"],
+                                                       p["bias"])]
+        y, new = batch_norm({"scale": inputs[1], "bias": inputs[2]}, stats,
+                            inputs[0], True, group)
+        out[name] = [y, new["mean"], new["var"],
+                     *torch.autograd.grad(y, inputs, g)]
+    for a, b in zip(out["group"], out["none"]):
+        assert torch.equal(a, b)

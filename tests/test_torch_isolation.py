@@ -53,6 +53,10 @@ def test_importing_the_port_loads_no_jax():
         "import kubeflow_tpu_torch.obs.envknob\n"
         "import kubeflow_tpu_torch.obs.exposition\n"
         "import kubeflow_tpu_torch.obs.recorder\n"
+        "import kubeflow_tpu_torch.parallel, kubeflow_tpu_torch.ops.ring\n"
+        "import kubeflow_tpu_torch.parallel.collectives\n"
+        "import kubeflow_tpu_torch.parallel.distributed\n"
+        "import kubeflow_tpu_torch.parallel.mesh\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n"

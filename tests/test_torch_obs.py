@@ -469,9 +469,12 @@ def test_json_log_formatter_matches_reference():
     assert got.pop("trace_id") == port_span.context.trace_id
     want.pop("span_id"), got.pop("span_id")
     assert got == want
+    logger = logging.getLogger("kubeflow_tpu_torch")
+    propagate, level = logger.propagate, logger.level
     handler = port_logging.configure_structured_logging()
     assert port_logging.configure_structured_logging() is handler
-    logging.getLogger("kubeflow_tpu_torch").removeHandler(handler)
+    logger.removeHandler(handler)
+    logger.propagate, logger.level = propagate, level
 
 
 def test_flight_recorder_dumps_like_reference(tmp_path):

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import importlib.util
 import pathlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -331,6 +332,38 @@ def test_build_lm_auto_takes_the_plain_path_for_cpu_tensors():
     torch.testing.assert_close(flash, plain, **TOL32)
 
 
+def test_meshless_step_runs_the_states_apply_fn():
+    """Without a mesh the step computes through ``state.apply_fn`` on the
+    state's parameters, so a wrapper around the model (one that keeps
+    what the forward returns) sees every call and the result is the
+    model's own."""
+    cfg = LMConfig(dtype=torch.float32, **SMALL)
+    tokens = torch.from_numpy(_batch(np.random.default_rng(5), 2, 16,
+                                     cfg.vocab, False)[0]).long()
+    want = create_lm_state(build_lm(cfg), seed=0, device="cpu")
+    want, want_metrics = make_lm_train_step(cfg=cfg)(want,
+                                                     {"tokens": tokens})
+    calls = []
+
+    class Wrapper:
+        def __init__(self, model):
+            self.model, self.cfg = model, model.cfg
+
+        def __call__(self, params, *args, **kwargs):
+            calls.append(params)
+            return self.model(params, *args, **kwargs)
+
+    state = create_lm_state(build_lm(cfg), seed=0, device="cpu")
+    state.apply_fn = Wrapper(state.apply_fn)
+    params = state.params
+    state, metrics = make_lm_train_step(cfg=cfg)(state, {"tokens": tokens})
+    assert len(calls) == 1 and calls[0] is params
+    assert torch.equal(metrics["loss"], want_metrics["loss"])
+    for (path, got), (_, ref) in zip(flatten(state.params),
+                                     flatten(want.params)):
+        assert torch.equal(got, ref), path
+
+
 def test_segment_order_is_checked_once_per_forward():
     cfg = LMConfig(dtype=torch.float32, **SMALL)
     params = create_lm_state(build_lm(cfg, use_flash=True), seed=0,
@@ -409,12 +442,25 @@ def test_smoke_twin_core_is_the_cpu_flash_path():
         assert torch.equal(g, r)
 
 
+def _mesh_shape(**axes):
+    """A stand-in with only a mesh's axis sizes: the refusals read no
+    more of the mesh than that."""
+    shape = dict(dp=1, pp=1, fsdp=1, tp=1, sp=1, ep=1)
+    shape.update(axes)
+    return types.SimpleNamespace(shape=shape)
+
+
 def test_unported_training_paths_raise():
+    """Meshes train since the parallel slice (tests/
+    test_torch_mesh_train.py); pipelines (pp), expert parallelism (ep)
+    and MoE on a mesh still raise, naming their ROADMAP items."""
     cfg = LMConfig(dtype=torch.float32, **SMALL)
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_lm(cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A10"):
-        make_lm_train_step(mesh=object(), cfg=cfg)
+    with pytest.raises(NotImplementedError, match="A10b"):
+        build_lm(cfg, mesh=_mesh_shape(dp=2, pp=2))
+    with pytest.raises(NotImplementedError, match="A10c"):
+        make_lm_train_step(mesh=_mesh_shape(dp=2, ep=2), cfg=cfg)
+    with pytest.raises(NotImplementedError, match="A10c"):
+        build_lm(LMConfig(moe_experts=2, **SMALL), mesh=_mesh_shape(dp=4))
     # MoE training is ported (tests/test_torch_moe.py): its step builds.
     assert callable(make_lm_train_step(cfg=LMConfig(moe_experts=2, **SMALL)))
     state = create_lm_state(build_lm(cfg), seed=0, device="cpu")
