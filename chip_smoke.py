@@ -179,6 +179,24 @@ Phases (a failed phase raises; nothing is caught):
    the device ms of one hop. The ring's collectives are held on the CPU
    (gloo worlds in ``tests/test_torch_ring.py``): one card runs one NCCL
    rank.
+15. mesh_ckpt (on the parallel phase's world of one, before it ends):
+   the train config through ``run_with_checkpointing(mesh=)`` on a seeded
+   stream of 4 batches, checkpoints saved every 2 steps under
+   ``kubeflow_tpu_torch/build/``, the batch iterator sending SIGTERM
+   while step 3 is in flight; a fresh mesh state of another seed resumes
+   from the step-3 checkpoint and runs step 4. Gates: step 3 committed
+   by the preempted run, its manifest stamped with the mesh's shape; the
+   state the resume starts from equals the saved state leaf by leaf; the
+   resumed run's final state within 1e-5 (relative norm, every leaf) of
+   an uninterrupted mesh run's (whether bit-equal is printed); 8 launches
+   of each flash kernel a step over the three runs. Then the mesh
+   checkpoint restored into a whole template and, saved again from it,
+   restored onto a mesh template: each equal to its source leaf by leaf.
+   Then the MoE config (phase 13's) steps once on the mesh and once
+   without, from seed 0 on one batch: the loss and every leaf within
+   1e-5 (whether bit-equal is printed), 8 launches of each flash kernel
+   in the mesh step; 3 timed steps of each. Printed: a mesh save's
+   blocking ms and seconds, the restores' seconds, step ms.
 
 Output: one JSON line per phase, the ``{"kernels": [...]}`` summary,
 the card's name and power limit, and last
@@ -2927,6 +2945,9 @@ def parallel_lm(torch, mesh) -> dict:
     if not err <= PARALLEL_RTOL:
         _fail(f"mesh LM leaf {leaf} after step 0 is {err} from the "
               f"meshless step's in relative norm")
+    if not (equal and loss == want):
+        _fail(f"mesh LM step 0 is not bit-equal to the meshless step "
+              f"(loss {loss} vs {want}, worst leaf {leaf} at {err})")
     state, plain_ms = timed_steps(torch, plain_step, state, batch,
                                   PARALLEL_STEPS)
     _build.reset_launches()
@@ -3089,10 +3110,269 @@ def ring_hops(torch, timer) -> dict:
                            "(tests/test_torch_ring.py), not on the card"}
 
 
-def parallel_phase(torch, timer) -> dict:
+# mesh_ckpt phase: MESH_CKPT_STEPS steps of the checkpointed loop on the
+# mesh, a save every MESH_CKPT_SAVE_EVERY, SIGTERM while step
+# MESH_CKPT_PREEMPT_AT is in flight; MESH_MOE_STEPS timed MoE steps of
+# each path.
+MESH_CKPT_STEPS, MESH_CKPT_SAVE_EVERY, MESH_CKPT_PREEMPT_AT = 4, 2, 3
+MESH_MOE_STEPS = 3
+
+
+def timed_restore(torch, fn):
+    """``fn()`` and its seconds, the device synchronised around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mesh_ckpt_loop(torch, mesh, root) -> dict:
+    """The checkpointed loop on the mesh, preempted and resumed, against
+    an uninterrupted mesh run; the launch counters zeroed just before the
+    uninterrupted run and read just after the resumed one. Returns the
+    readings and the preempted run's state and directory."""
+    import os
+    import signal
+    import tempfile
+
+    from kubeflow_tpu_torch.models import (
+        build_lm,
+        create_lm_state,
+        make_lm_train_step,
+        realign_batches,
+        run_with_checkpointing,
+    )
+    from kubeflow_tpu_torch.models.checkpoint import CheckpointManager
+    from kubeflow_tpu_torch.models.optim import flatten
+    from kubeflow_tpu_torch.ops import _build
+
+    cfg = train_config(torch)
+    gen = torch.Generator(device="cuda").manual_seed(2033)
+    batches = [{"tokens": torch.randint(0, cfg.vocab,
+                                        (TRAIN_BATCH, TRAIN_SEQ),
+                                        device="cuda", generator=gen)}
+               for _ in range(MESH_CKPT_STEPS)]
+    step = make_lm_train_step(mesh, cfg=cfg)
+
+    def fresh(seed):
+        return create_lm_state(build_lm(cfg, mesh), seed=seed, mesh=mesh)
+
+    directory = tempfile.mkdtemp(prefix="mesh_ckpt_", dir=root)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    straight = fresh(0)
+    for batch in batches:
+        straight, _ = step(straight, batch)
+
+    def preempting(stream):
+        for i, batch in enumerate(stream):
+            if i == MESH_CKPT_PREEMPT_AT - 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield batch
+
+    mgr_b = CheckpointManager(directory, keep=2)
+    t0 = time.perf_counter()
+    state_b, rep_b = run_with_checkpointing(
+        step, fresh(0), preempting(batches), mgr_b,
+        save_every_steps=MESH_CKPT_SAVE_EVERY, mesh=mesh)
+    wall_b = time.perf_counter() - t0
+    if not (rep_b.preempted and rep_b.final_step == MESH_CKPT_PREEMPT_AT
+            and mgr_b.latest_committed_step() == MESH_CKPT_PREEMPT_AT):
+        _fail(f"mesh run B: preempted={rep_b.preempted} at "
+              f"{rep_b.final_step}, committed {mgr_b.steps()}")
+    stamped = mgr_b.step_fingerprint(MESH_CKPT_PREEMPT_AT).get("mesh")
+    if stamped != list(mesh.spec.shape):
+        _fail(f"the mesh run's manifest records mesh {stamped}")
+    mgr_c = CheckpointManager(directory, keep=2)
+    seen = {}
+
+    def first_checked(state, batch):
+        if not seen:
+            seen["equal"] = states_equal(torch, state, state_b)
+        return step(state, batch)
+
+    t0 = time.perf_counter()
+    state_c, rep_c = run_with_checkpointing(
+        first_checked, fresh(1),
+        realign_batches(batches, MESH_CKPT_PREEMPT_AT), mgr_c, mesh=mesh,
+        install_signal_handler=False)
+    wall_c = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    steps = MESH_CKPT_STEPS + MESH_CKPT_PREEMPT_AT + (
+        MESH_CKPT_STEPS - MESH_CKPT_PREEMPT_AT)
+    for name in TRAIN_KERNELS:
+        if launches[name] != steps * cfg.layers:
+            _fail(f"{name} launched {launches[name]} times in the mesh "
+                  f"ckpt runs' {steps} steps, not {cfg.layers} per step")
+    if not seen.get("equal"):
+        _fail("the state the mesh resume starts from is not the saved one")
+    if rep_c.resumed_from_step != MESH_CKPT_PREEMPT_AT or \
+            rep_c.final_step != MESH_CKPT_STEPS or rep_c.resharded:
+        _fail(f"mesh run C resumed from {rep_c.resumed_from_step} to "
+              f"{rep_c.final_step}, resharded={rep_c.resharded}")
+    (err, leaf), equal = worst_leaf(torch, dict(flatten(state_c.params)),
+                                    dict(flatten(straight.params)))
+    if not err <= PARALLEL_RTOL:
+        _fail(f"the resumed mesh run's {leaf} is {err} from the "
+              f"uninterrupted run's in relative norm")
+    out = {"steps": MESH_CKPT_STEPS, "preempt_at": MESH_CKPT_PREEMPT_AT,
+           "save_every_steps": MESH_CKPT_SAVE_EVERY,
+           "saves": {"B": rep_b.saves, "C": rep_c.saves},
+           "wall_s": {"B": wall_b, "C": wall_c}, "mesh": stamped,
+           "restored_state_bit_equal": seen["equal"],
+           "resumed_vs_straight_rel_err_max": err, "worst_leaf": leaf,
+           "resumed_bit_equal": equal and states_equal(torch, state_c,
+                                                        straight),
+           "launches": launches}
+    del state_c, straight
+    return out, state_b, directory
+
+
+def mesh_ckpt_restores(torch, mesh, state_b, directory, root) -> dict:
+    """The mesh checkpoint into a whole template (mesh -> meshless) and,
+    saved from there, onto a mesh template (meshless -> mesh), each equal
+    to its source leaf by leaf; a mesh save timed alone."""
+    import os
+    import tempfile
+
+    from kubeflow_tpu_torch.models import (
+        build_lm,
+        create_lm_state,
+        gather_state,
+    )
+    from kubeflow_tpu_torch.models.checkpoint import (
+        CheckpointManager,
+        restore_checkpoint,
+    )
+
+    cfg = train_config(torch)
+    like = create_lm_state(build_lm(cfg), seed=2)
+    whole, whole_s = timed_restore(torch, lambda: restore_checkpoint(
+        directory, like))
+    if not states_equal(torch, whole, gather_state(state_b)):
+        _fail("the mesh checkpoint restored whole is not the mesh state")
+    whole_dir = tempfile.mkdtemp(prefix="whole_", dir=root)
+    manager = CheckpointManager(whole_dir, keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    manager.save_async(7, whole)
+    whole_blocking = time.perf_counter() - t0
+    manager.wait()
+    whole_save_s = time.perf_counter() - t0
+    like = create_lm_state(build_lm(cfg, mesh), seed=3, mesh=mesh)
+    onto, onto_s = timed_restore(torch, lambda: restore_checkpoint(
+        whole_dir, like, mesh=mesh))
+    if not states_equal(torch, gather_state(onto), whole):
+        _fail("a whole checkpoint restored onto the mesh is not the state")
+    del onto, whole
+    mesh_dir = tempfile.mkdtemp(prefix="mesh_save_", dir=root)
+    manager = CheckpointManager(mesh_dir, keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    manager.save_async(8, state_b)
+    mesh_blocking = time.perf_counter() - t0
+    manager.wait()
+    mesh_save_s = time.perf_counter() - t0
+    ckpt_bytes = os.path.getsize(os.path.join(mesh_dir, "8",
+                                              "shard-00000.bin"))
+    like = create_lm_state(build_lm(cfg, mesh), seed=4, mesh=mesh)
+    _, mesh_restore_s = timed_restore(
+        torch, lambda: manager.restore_latest_valid(like))
+    return {"ckpt_bytes": ckpt_bytes,
+            "mesh_save": {"blocking_ms": mesh_blocking * 1e3,
+                          "save_s": mesh_save_s,
+                          "gb_per_s": ckpt_bytes / mesh_save_s / 1e9},
+            "mesh_restore_s": mesh_restore_s,
+            "whole_save": {"blocking_ms": whole_blocking * 1e3,
+                           "save_s": whole_save_s},
+            "mesh_to_whole_restore_s": whole_s,
+            "whole_to_mesh_restore_s": onto_s}
+
+
+def mesh_moe(torch, mesh) -> dict:
+    """The MoE config's step 0 on the mesh against the meshless step,
+    launches counted over the mesh step alone; then MESH_MOE_STEPS timed
+    steps of each."""
+    from kubeflow_tpu_torch.models import (
+        build_lm,
+        create_lm_state,
+        gather_state,
+        make_lm_train_step,
+    )
+    from kubeflow_tpu_torch.models.optim import flatten
+    from kubeflow_tpu_torch.ops import _build
+
+    cfg = moe_config(torch)
+    gen = torch.Generator(device="cuda").manual_seed(2034)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                                     device="cuda", generator=gen)}
+    plain_step = make_lm_train_step(cfg=cfg)
+    mesh_step = make_lm_train_step(mesh, cfg=cfg)
+    plain, plain_m = plain_step(create_lm_state(build_lm(cfg), seed=0),
+                                batch)
+    meshed = create_lm_state(build_lm(cfg, mesh), seed=0, mesh=mesh)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    meshed, mesh_m = mesh_step(meshed, batch)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    for name in TRAIN_KERNELS:
+        if launches[name] != cfg.layers:
+            _fail(f"{name} launched {launches[name]} times in the mesh MoE "
+                  f"step, not {cfg.layers}")
+    loss, want = float(mesh_m["loss"]), float(plain_m["loss"])
+    loss_err = abs(loss - want) / abs(want)
+    if not loss_err <= PARALLEL_RTOL:
+        _fail(f"mesh MoE step-0 loss {loss} vs meshless {want}")
+    (err, leaf), equal = worst_leaf(
+        torch, dict(flatten(gather_state(meshed).params)),
+        dict(flatten(plain.params)))
+    if not err <= PARALLEL_RTOL:
+        _fail(f"mesh MoE leaf {leaf} after step 0 is {err} from the "
+              f"meshless step's in relative norm")
+    # A mesh of one runs no collective and the meshless step's kernels in
+    # its order: step 0 is held bit for bit.
+    if not (equal and loss == want):
+        _fail(f"mesh MoE step 0 is not bit-equal to the meshless step "
+              f"(loss {loss} vs {want}, worst leaf {leaf} at {err})")
+    plain, plain_ms = timed_steps(torch, plain_step, plain, batch,
+                                  MESH_MOE_STEPS)
+    meshed, mesh_ms = timed_steps(torch, mesh_step, meshed, batch,
+                                  MESH_MOE_STEPS)
+    return {"loss": {"mesh": loss, "meshless": want},
+            "loss_rel_err": loss_err, "leaf_rel_err_max": err,
+            "worst_leaf": leaf, "bit_equal": equal and loss == want,
+            "step_ms": {"mesh": mesh_ms, "meshless": plain_ms},
+            "step_ms_median": {"mesh": statistics.median(mesh_ms[1:]),
+                               "meshless": statistics.median(plain_ms[1:])},
+            "launches": launches}
+
+
+def mesh_ckpt_phase(torch, mesh, root) -> dict:
+    """Checkpoints and MoE on the mesh of one (phase 15)."""
+    loop, state_b, directory = mesh_ckpt_loop(torch, mesh, root)
+    # The state and directory come from the run, not from its clock.
+    # analysis: allow[det-wallclock-in-replay]
+    restores = mesh_ckpt_restores(torch, mesh, state_b, directory, root)
+    del state_b
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    moe = mesh_moe(torch, mesh)
+    launches = {name: loop["launches"].get(name, 0)
+                + moe["launches"].get(name, 0)
+                for name in SERVE_KERNELS + TRAIN_KERNELS}
+    return {"phase": "mesh_ckpt", "world_size": mesh.size(mesh.axis_names),
+            "loop": loop, "restores": restores, "moe": moe,
+            "launches": launches}
+
+
+def parallel_phase(torch, timer, root) -> tuple:
     """The world from the platform env (a single replica: none), a mesh
     of one over the card, the LM and ResNet-50 steps on it against the
-    meshless steps, and the ring's hops at full width."""
+    meshless steps, the ring's hops at full width; then, on the same
+    world, the mesh_ckpt phase. Returns both phases' lines."""
     import torch.distributed as dist
 
     from kubeflow_tpu_torch.parallel import (
@@ -3117,11 +3397,15 @@ def parallel_phase(torch, timer) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     ring = ring_hops(torch, timer)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mesh_ckpt = mesh_ckpt_phase(torch, mesh, root)
     dist.destroy_process_group()
     launches = {name: lm["launches"].get(name, 0)
                 for name in SERVE_KERNELS + TRAIN_KERNELS}
-    return {"phase": "parallel", "world": world, "rtol": PARALLEL_RTOL,
-            "lm": lm, "resnet": resnet, "ring": ring, "launches": launches}
+    return ({"phase": "parallel", "world": world, "rtol": PARALLEL_RTOL,
+             "lm": lm, "resnet": resnet, "ring": ring,
+             "launches": launches}, mesh_ckpt)
 
 
 def main() -> int:
@@ -3202,8 +3486,13 @@ def main() -> int:
     print(json.dumps(moe), flush=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    parallel = parallel_phase(torch, timer)
+    root = tempfile.mkdtemp(prefix="mesh_ckpt_smoke_", dir=_build.BUILD_DIR)
+    try:
+        parallel, mesh_ckpt = parallel_phase(torch, timer, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     print(json.dumps(parallel), flush=True)
+    print(json.dumps(mesh_ckpt), flush=True)
     main_case = {"gemv": "tied_head", "qkv_rope": "flagship",
                  "decode_attention": "serve_shape",
                  "flash_attention": "causal", "flash_dq": "train_causal",
@@ -3220,7 +3509,8 @@ def main() -> int:
     # the spec phase's four speculative runs', ``spec_serve_launches``
     # the speculative engine run's, ``moe_launches`` the moe phase's two
     # training runs' and its fallback engine run's, ``parallel_launches``
-    # the parallel phase's mesh LM steps'.
+    # the parallel phase's mesh LM steps', ``mesh_ckpt_launches`` the
+    # mesh_ckpt phase's checkpointed mesh runs' and mesh MoE step's.
     launches = {**serve["launches"], "flash_dq": train["launches"]["flash_dq"],
                 "flash_dkv": train["launches"]["flash_dkv"]}
     meta = {
@@ -3256,7 +3546,8 @@ def main() -> int:
             "spec_launches": spec["launches"][name],
             "spec_serve_launches": spec_serve["launches"][name],
             "moe_launches": moe["launches"][name],
-            "parallel_launches": parallel["launches"][name]})
+            "parallel_launches": parallel["launches"][name],
+            "mesh_ckpt_launches": mesh_ckpt["launches"][name]})
     print(json.dumps({"kernels": summary}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

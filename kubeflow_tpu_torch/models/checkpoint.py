@@ -40,10 +40,17 @@ Where the port differs from the reference, and why:
   the state's tensors in place, so the writer thread must not read
   them. The payload then streams to its file leaf by leaf, hashed on
   the way, instead of being built in one host buffer.
-- The state is replicated on every rank, so process 0 writes every leaf
-  whole; restore assembles whole leaves on the template's device. A
-  state on a mesh (its leaves are shards), ``placements`` and ``mesh``
-  belong to a later slice of the port (ROADMAP A10c) and raise.
+- A state on a mesh (``TrainState.mesh``; its tensors are this rank's
+  shards) knows each leaf's placement, so every rank writes the blocks
+  it holds as their first replica, indexed into the global shape, as
+  the reference writes its ``replica_id == 0`` shards. Any other tree is
+  written whole by process 0, unless ``save(placements=)`` gives its
+  leaves their ``parallel.Sharding``.
+- Restore reads, for each leaf, the region its target puts on this
+  rank, from whatever shard files cover it: a template on a mesh takes
+  its own placements (its leaves are shards), a whole template takes
+  ``placements=`` (its leaves are global, as the reference's), and
+  without either every leaf comes back whole on the template's device.
 - The multi-process transport is ``torch.distributed``'s store when a
   process group is initialised (the reference uses jax.distributed's
   coordination service); injected ``barrier``/``broadcast`` callables
@@ -68,7 +75,11 @@ from datetime import timedelta
 import numpy as np
 import torch
 
-from kubeflow_tpu_torch.models.optim import AdamWState
+from kubeflow_tpu_torch.models.optim import (
+    AdamWState,
+    map_param_trees,
+    tree_map_with_path,
+)
 from kubeflow_tpu_torch.models.train import TrainState
 from kubeflow_tpu_torch.obs.exposition import (
     Counter,
@@ -78,6 +89,7 @@ from kubeflow_tpu_torch.obs.exposition import (
 )
 from kubeflow_tpu_torch.obs.metrics import BucketHistogram
 from kubeflow_tpu_torch.obs.trace import get_tracer
+from kubeflow_tpu_torch.parallel.mesh import AXES, Sharding
 
 log = logging.getLogger(__name__)
 
@@ -214,17 +226,18 @@ class _StoreClient:
         self._store.delete_key(key)
 
 
-def _coordination_client():
-    """The initialised process group's store as a coordination client,
-    or None when no multi-process world is up."""
+def _coordination_client(processes: int):
+    """The initialised process group's store as a coordination client
+    whose barriers wait for ``processes`` arrivals (the manager's: a
+    mesh may span part of the world), or None when no multi-process
+    world is up."""
     import torch.distributed as dist
 
     if not (dist.is_available() and dist.is_initialized()):
         return None
     from torch.distributed import distributed_c10d
 
-    return _StoreClient(distributed_c10d._get_default_store(),
-                        dist.get_world_size())
+    return _StoreClient(distributed_c10d._get_default_store(), processes)
 
 
 # Every this-many agreements, rendezvous the world and GC consumed kv
@@ -302,11 +315,6 @@ def _arrays_only(state):
     the template. Any other tree is returned as it is."""
     if not isinstance(state, TrainState):
         return state
-    if state.mesh is not None:
-        raise NotImplementedError(
-            "checkpoints of a state on a mesh (per-rank shard writes, "
-            "region reads) belong to a later slice of the port "
-            "(ROADMAP A10c)")
     opt = state.opt_state
     if isinstance(opt, AdamWState):
         opt = (dataclasses.replace(opt, count=np.int32(int(opt.count))),)
@@ -378,8 +386,8 @@ class _HostLeaf:
     key: str
     shape: tuple
     dtype: str
-    # [(normalized index, contiguous np array)]; only process 0 writes
-    # (the state is replicated on every rank).
+    # [(normalized index, contiguous np array)]: only the blocks THIS
+    # process writes (the first replica's), so saves never gather.
     shards: list
 
 
@@ -408,24 +416,76 @@ def _leaf_meta(leaf) -> tuple[tuple, str]:
     return tuple(arr.shape), str(arr.dtype)
 
 
-def _snapshot(state, process_id: int) -> list[_HostLeaf]:
-    """Device → host copy of every leaf: the only part of a save that
-    runs synchronously with the train loop. The copies are real (the
-    next in-place step must not reach the writer thread's bytes). Only
-    process 0 writes, so the other ranks take each leaf's shape and
-    dtype and copy nothing."""
+def _placement_tree(state: TrainState):
+    """A mesh state's placements in the shape of :func:`_arrays_only`'s
+    tree: a :class:`Sharding` per tensor leaf (the optimizer's moments
+    and trace at their parameter's), the host ints as they are."""
+    mesh, placements = state.mesh, state.placements
+
+    def shardings(group, tree):
+        return tree_map_with_path(
+            lambda path, _: Sharding(mesh, placements[group][path]), tree)
+
+    params = shardings("params", state.params)
+    return _arrays_only(dataclasses.replace(
+        state, params=params,
+        batch_stats=shardings("batch_stats", state.batch_stats),
+        opt_state=map_param_trees(state.opt_state, lambda _: params)))
+
+
+def _shardings(state, placements) -> list:
+    """Each leaf's :class:`Sharding` (None: a whole leaf), in flatten
+    order: a mesh state's own, else ``placements``' (a tree matching the
+    state's array fields), else none."""
+    n = len(_flatten_keys(_arrays_only(state)))
+    if isinstance(state, TrainState) and state.mesh is not None:
+        tree = _placement_tree(state)
+    elif placements is not None:
+        tree = placements
+    else:
+        return [None] * n
+    out = [sh if isinstance(sh, Sharding) else None
+           for _, sh in _flatten_keys(tree)]
+    if len(out) != n:
+        raise ValueError("placements tree does not match the state's array "
+                         f"fields ({len(out)} vs {n})")
+    return out
+
+
+def _snapshot(state, process_id: int, process_count: int = 1,
+              placements=None) -> list[_HostLeaf]:
+    """Device → host copy of the blocks this process writes: the only
+    part of a save that runs synchronously with the train loop. The
+    copies are real (the next in-place step must not reach the writer
+    thread's bytes). A sharded leaf (:func:`_shardings`) is written by
+    every rank that holds the first replica of its block, indexed into
+    the global shape; any other leaf whole, by process 0 alone."""
     leaves = _flatten_keys(_arrays_only(state))
-    if process_id != 0:
-        return [_HostLeaf(key, *_leaf_meta(leaf), []) for key, leaf in leaves]
+    shardings = _shardings(state, placements)
+    for sh in shardings:
+        if sh is not None and sh.mesh.size(AXES) != process_count:
+            raise ValueError(
+                f"a state on a mesh of {sh.mesh.size(AXES)} ranks needs a "
+                f"manager with process_count={sh.mesh.size(AXES)}, not "
+                f"{process_count}")
     if any(isinstance(leaf, torch.Tensor) and leaf.is_cuda
            for _, leaf in leaves):
         torch.cuda.synchronize()
     out = []
-    for key, leaf in leaves:
-        arr, dtype = _host_copy(leaf)
-        shape = tuple(arr.shape)
-        whole = _normalize_index(tuple(slice(0, d) for d in shape), shape)
-        out.append(_HostLeaf(key, shape, dtype, [(whole, arr)]))
+    for (key, leaf), sh in zip(leaves, shardings):
+        shape, dtype = _leaf_meta(leaf)
+        if sh is not None:
+            shape = sh.global_shape(shape)
+            writes, index = sh.first_replica, sh.region(shape)
+        else:
+            writes = process_id == 0
+            index = _normalize_index(tuple(slice(0, d) for d in shape),
+                                     shape)
+        shards = []
+        if writes:
+            arr, dtype = _host_copy(leaf)
+            shards = [(index, arr)]
+        out.append(_HostLeaf(key, shape, dtype, shards))
     return out
 
 
@@ -502,7 +562,7 @@ class CheckpointManager:
             return
         if self.process_count <= 1:
             return
-        client = _coordination_client()
+        client = _coordination_client(self.process_count)
         if client is None:
             raise RuntimeError(
                 "a multi-process checkpoint needs a transport: initialise "
@@ -527,7 +587,7 @@ class CheckpointManager:
         key = f"{tag}.{seq}"
         if self._broadcast is not None:
             return str(self._broadcast(key, value))
-        client = _coordination_client()
+        client = _coordination_client(self.process_count)
         if client is None:
             raise RuntimeError(
                 "a multi-process agreement needs a transport: initialise "
@@ -552,7 +612,7 @@ class CheckpointManager:
         commit barrier just rendezvoused the world)."""
         if not keys:
             return
-        client = _coordination_client()
+        client = _coordination_client(self.process_count)
         if client is None or not hasattr(client, "key_value_delete"):
             return
         for key in keys:
@@ -568,21 +628,28 @@ class CheckpointManager:
         return os.path.join(self.directory, f"{TMP_PREFIX}{int(step)}")
 
     # ---- save ------------------------------------------------------------
-    def save(self, step: int, state) -> str:
+    def save(self, step: int, state, placements=None) -> str:
         """Synchronous save: blocks until the step is committed durable
-        (or raises). Returns the committed step directory."""
+        (or raises). Returns the committed step directory.
+        ``placements`` (a tree of :class:`Sharding` matching a tree
+        ``state`` leaf for leaf, ``Sharding(mesh, ())`` for a replicated
+        one; the state's leaves are then each rank's blocks) is for
+        states that do not carry their own, as a mesh ``TrainState``
+        does."""
         self.wait()
-        host = _snapshot(state, self.process_id)
+        host = _snapshot(state, self.process_id, self.process_count,
+                         placements)
         return self._write(int(step), host, self._take_bcast_keys())
 
-    def save_async(self, step: int, state) -> None:
+    def save_async(self, step: int, state, placements=None) -> None:
         """Background save: the host snapshot is taken before this
         returns (the caller may step the state in place right after);
         the durable write runs on a worker thread. At most one save is
         in flight: a second call first waits out the previous one (and
         surfaces its error)."""
         self.wait()
-        host = _snapshot(state, self.process_id)
+        host = _snapshot(state, self.process_id, self.process_count,
+                         placements)
         # Taken on the caller thread: exactly the keys published before
         # this save, which every rank consumed before its own save.
         consumed = self._take_bcast_keys()
@@ -710,10 +777,18 @@ class CheckpointManager:
         self._gc()
 
     def _fingerprint(self) -> dict:
+        """Process count, backend and device count (the world's ranks,
+        one device each, when a process group is up; else this
+        process's cards), then the caller's extras (the loop's
+        ``mesh``)."""
+        import torch.distributed as dist
+
         cuda = torch.cuda.is_available()
+        devices = torch.cuda.device_count() if cuda else 1
+        if dist.is_available() and dist.is_initialized():
+            devices = dist.get_world_size()
         fp = {"process_count": self.process_count,
-              "backend": "gpu" if cuda else "cpu",
-              "device_count": torch.cuda.device_count() if cuda else 1}
+              "backend": "gpu" if cuda else "cpu", "device_count": devices}
         fp.update(self.fingerprint)
         return fp
 
@@ -949,16 +1024,18 @@ def _read_region(region, dtype, shards, payloads, key):
     return out
 
 
-def _to_template(data: np.ndarray, stored: str, tmpl):
-    """One assembled leaf (storage dtype) in the template's form: a
-    tensor on the template's device in its dtype (requiring grad where
-    the template does), or a numpy array in the template's dtype (the
-    reference's host restore). Casts involving bfloat16 run in torch."""
+def _to_template(data: np.ndarray, stored: str, tmpl, device=None):
+    """One assembled leaf or block (storage dtype) in the template's
+    form: a tensor in its dtype on ``device`` (default: the template's),
+    requiring grad where the template does, or a numpy array in the
+    template's dtype (the reference's host restore). Casts involving
+    bfloat16 run in torch."""
     if isinstance(tmpl, torch.Tensor):
         t = torch.from_numpy(data)
         if stored == "bfloat16":
             t = t.view(torch.bfloat16)
-        t = t.to(device=tmpl.device, dtype=tmpl.dtype)
+        t = t.to(device=tmpl.device if device is None else device,
+                 dtype=tmpl.dtype)
         return t.requires_grad_(True) if tmpl.requires_grad else t
     target = getattr(tmpl, "dtype", None)
     if target is None:
@@ -980,13 +1057,13 @@ def _to_template(data: np.ndarray, stored: str, tmpl):
 
 
 def _load_step_dir(step_dir: str, like, placements=None):
-    """Assemble every leaf of ``like`` from the step's shard files, whole,
-    in the template's form (see :func:`_to_template`). Payloads are
-    mmapped and digest-verified shard by shard on first touch."""
-    if placements is not None:
-        raise NotImplementedError(
-            "sharded placements belong to a later slice of the port "
-            "(ROADMAP A10c)")
+    """Assemble every leaf of ``like`` from the step's shard files in the
+    template's form (see :func:`_to_template`): for a sharded target
+    (:func:`_shardings`: a template on a mesh, or ``placements``) only
+    the region it puts on this rank, on its mesh's device; otherwise the
+    whole leaf. The saved and target meshes may differ in shape and
+    size. Payloads are mmapped and digest-verified shard by shard on
+    first touch, and only the shards a region overlaps are read."""
     manifest = _read_manifest(step_dir)
     metas: list[dict] = []
     bin_names: list[str] = []
@@ -1017,10 +1094,12 @@ def _load_step_dir(step_dir: str, like, placements=None):
                 slot["shards"].append((bin_name, entry))
 
     arrays = _arrays_only(like)
+    shardings = _shardings(like, placements)
+    local = isinstance(like, TrainState) and like.mesh is not None
     payloads = _ShardPayloads(step_dir, bin_names)
     try:
         restored_leaves = []
-        for key, tmpl_leaf in _flatten_keys(arrays):
+        for (key, tmpl_leaf), sh in zip(_flatten_keys(arrays), shardings):
             info = leaves.get(key)
             if info is None:
                 raise CheckpointCorrupt(
@@ -1028,6 +1107,8 @@ def _load_step_dir(step_dir: str, like, placements=None):
             shape = info["shape"]
             tmpl_shape = tuple(getattr(tmpl_leaf, "shape",
                                        np.shape(tmpl_leaf)))
+            if local and sh is not None:
+                tmpl_shape = sh.global_shape(tmpl_shape)
             if shape != tmpl_shape:
                 raise ValueError(
                     f"checkpoint leaf {key} has shape {shape}, template "
@@ -1048,10 +1129,12 @@ def _load_step_dir(step_dir: str, like, placements=None):
                 raise CheckpointCorrupt(
                     f"{step_dir}: leaf {key} coverage {covered}/{size} "
                     "elements (missing shards)")
-            data = _read_region([[0, d] for d in shape], storage, shards,
-                                payloads, key)
-            restored_leaves.append(_to_template(data, info["dtype"],
-                                                tmpl_leaf))
+            region = ([[0, d] for d in shape] if sh is None
+                      else sh.region(shape))
+            data = _read_region(region, storage, shards, payloads, key)
+            restored_leaves.append(_to_template(
+                data, info["dtype"], tmpl_leaf,
+                None if sh is None else sh.mesh.device))
     finally:
         payloads.close()
     restored = _unflatten(arrays, iter(restored_leaves))
@@ -1092,28 +1175,47 @@ def restore_checkpoint(path, like, mesh=None, tp_rules: dict | None = None):
     """Restore into the shape of ``like`` (a TrainState template from
     ``create_lm_state`` or any tree). ``path`` may be a checkpoint root
     (the newest valid step), a step directory, or a stepless
-    ``save_checkpoint`` target. ``mesh``/``tp_rules`` belong to a later
-    slice of the port (ROADMAP A10c)."""
-    if mesh is not None or tp_rules is not None:
-        raise NotImplementedError(
-            "restoring onto a mesh belongs to a later slice of the port "
-            "(ROADMAP A10c)")
+    ``save_checkpoint`` target. A template on a mesh restores onto it
+    (each rank reads its region of every leaf, whatever mesh saved the
+    step); a whole ``TrainState`` template restores whole, or, with
+    ``mesh``, onto that mesh at the placements and with the ``apply_fn``
+    that ``convert.mesh_form`` gives it (the LM's come from its model,
+    so its tp-sharded leaves come back tp-sharded with ``tp_rules`` left
+    out; other rules are refused)."""
     path = os.path.abspath(os.fspath(path))
+    target = placements = None
+    if mesh is not None and getattr(like, "mesh", None) is not mesh:
+        if not isinstance(like, TrainState) or like.mesh is not None:
+            raise ValueError("restoring onto a mesh takes a TrainState "
+                             "template that is whole or on that mesh")
+        from kubeflow_tpu_torch.models.convert import mesh_form
+
+        target_placements, apply_fn = mesh_form(like, mesh, tp_rules)
+        target = dataclasses.replace(like, mesh=mesh, apply_fn=apply_fn,
+                                     placements=target_placements)
+        placements = _placement_tree(target)
     if os.path.isfile(os.path.join(path, MANIFEST_NAME)):
         problems = _validate_step_dir(path)
         if problems:
             raise CheckpointCorrupt(f"{path}: " + "; ".join(problems))
-        return _load_step_dir(path, like)
-    manager = CheckpointManager(path, **_world_identity())
-    if (os.path.isfile(os.path.join(path, "0", MANIFEST_NAME))
-            and manager.steps() == [0]):
-        return manager.restore(0, like)
-    result = manager.restore_latest_valid(like)
-    if result is None:
-        raise FileNotFoundError(
-            f"no valid checkpoint under {path} (torn/corrupt steps are "
-            "skipped; see checkpoint_restore_total)")
-    return result[0]
+        restored = _load_step_dir(path, like, placements)
+    else:
+        manager = CheckpointManager(path, **_world_identity())
+        if (os.path.isfile(os.path.join(path, "0", MANIFEST_NAME))
+                and manager.steps() == [0]):
+            restored = manager.restore(0, like, placements)
+        else:
+            result = manager.restore_latest_valid(like, placements)
+            if result is None:
+                raise FileNotFoundError(
+                    f"no valid checkpoint under {path} (torn/corrupt steps "
+                    "are skipped; see checkpoint_restore_total)")
+            restored = result[0]
+    if target is not None:
+        restored = dataclasses.replace(restored, mesh=target.mesh,
+                                       placements=target.placements,
+                                       apply_fn=target.apply_fn)
+    return restored
 
 
 def latest_step(path) -> int | None:

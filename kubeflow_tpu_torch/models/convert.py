@@ -18,7 +18,8 @@ dtype once here (the reference casts on every call, to the same
 values); norm scales stay f32.
 
 :func:`shard_state` lays a whole state (converted, or built without a
-mesh) onto a mesh, each rank keeping its shards; :func:`gather_state`
+mesh) onto a mesh, each rank keeping its shards, at the placements of
+:func:`mesh_form`, which a restore onto a mesh reads too; :func:`gather_state`
 assembles a mesh state whole again. The reference's sharded arrays come
 to numpy whole through ``np.asarray``, so a converted state is always
 whole first.
@@ -43,10 +44,14 @@ from kubeflow_tpu_torch.models.optim import (
     make_optimizer,
     trainable,
 )
-from kubeflow_tpu_torch.models.optim import tree_map_with_path
+from kubeflow_tpu_torch.models.optim import (
+    map_param_trees,
+    tree_map_with_path,
+)
 from kubeflow_tpu_torch.models.resnet import ResNet
 from kubeflow_tpu_torch.models.train import TrainState, state_shardings
 from kubeflow_tpu_torch.models.transformer import (
+    LM_TP_RULES,
     LMConfig,
     TransformerLM,
     build_lm,
@@ -164,33 +169,38 @@ def train_state_from_jax(cfg, state_np, apply_fn=None, tx=None,
                       apply_fn=apply_fn or build_lm(cfg))
 
 
-def _map_param_trees(node, fn):
-    """``fn`` over every parameter-shaped dict of an optimizer state
-    (AdamW's mu and nu, the SGD chain's trace), its structure kept."""
-    if isinstance(node, dict):
-        return fn(node)
-    if isinstance(node, (list, tuple)):
-        return type(node)(_map_param_trees(child, fn) for child in node)
-    if dataclasses.is_dataclass(node) and not isinstance(node, type):
-        return dataclasses.replace(node, **{
-            f.name: _map_param_trees(getattr(node, f.name), fn)
-            for f in dataclasses.fields(node)})
-    return node
+def mesh_form(state: TrainState, mesh, tp_rules: dict | None = None,
+              apply_fn=None) -> tuple[dict, Any]:
+    """The placements (:func:`~kubeflow_tpu_torch.models.train.
+    state_shardings`) and the ``apply_fn`` that the whole ``state`` takes
+    on ``mesh``. For the LM both come from the model: its config built
+    on the mesh (``build_lm(cfg, mesh)``, unless ``apply_fn`` or the
+    state's model is on it already) and its layout,
+    ``transformer.LM_TP_RULES``, which its tp blocks compute with, so
+    ``tp_rules`` may be None or those rules and nothing else. Any other
+    state takes ``tp_rules`` as given and keeps its ``apply_fn`` (ResNet's
+    model takes its BatchNorm group per call)."""
+    apply_fn = apply_fn or state.apply_fn
+    if isinstance(apply_fn, TransformerLM):
+        if tp_rules is not None and tp_rules != LM_TP_RULES:
+            raise ValueError("the LM's tp layout is LM_TP_RULES; a state "
+                             "placed by other rules would not match what "
+                             "its blocks compute")
+        tp_rules = LM_TP_RULES
+        if apply_fn.mesh is not mesh:
+            apply_fn = build_lm(apply_fn.cfg, mesh=mesh)
+    return state_shardings(state, mesh, tp_rules), apply_fn
 
 
 def shard_state(state: TrainState, mesh, tp_rules: dict | None = None,
                 apply_fn=None) -> TrainState:
     """A WHOLE state laid onto ``mesh``: each rank keeps its block of
-    every leaf at :func:`~kubeflow_tpu_torch.models.train.state_shardings`
-    (the moments and the trace at their parameter's placement), sliced
-    where the state lies and only then moved to the mesh's device, so a
-    state made in host memory never reaches the card whole; the
-    parameters require grad. ``tp_rules`` must be
-    the model's (``transformer.LM_TP_RULES`` for the LM). The new
-    state's ``apply_fn`` is ``apply_fn``, else, for the LM, the meshless
-    model's config built on the mesh (``build_lm(cfg, mesh)``), else the
-    state's own (ResNet's model takes its BatchNorm group per call)."""
-    placements = state_shardings(state, mesh, tp_rules)
+    every leaf at the placements of :func:`mesh_form` (the moments and
+    the trace at their parameter's placement), sliced where the state
+    lies and only then moved to the mesh's device, so a state made in
+    host memory never reaches the card whole; the parameters require
+    grad. The new state's ``apply_fn`` is :func:`mesh_form`'s."""
+    placements, apply_fn = mesh_form(state, mesh, tp_rules, apply_fn)
 
     def shard(group):
         def leaf(path, t):
@@ -198,13 +208,9 @@ def shard_state(state: TrainState, mesh, tp_rules: dict | None = None,
                                placements[group][path]).to(mesh.device)
         return lambda tree: tree_map_with_path(leaf, tree)
 
-    if apply_fn is None:
-        apply_fn = state.apply_fn
-        if isinstance(apply_fn, TransformerLM):
-            apply_fn = build_lm(apply_fn.cfg, mesh=mesh)
     return dataclasses.replace(
         state, params=trainable(shard("params")(state.params)),
-        opt_state=_map_param_trees(state.opt_state, shard("params")),
+        opt_state=map_param_trees(state.opt_state, shard("params")),
         batch_stats=shard("batch_stats")(state.batch_stats),
         apply_fn=apply_fn, mesh=mesh, placements=placements)
 
@@ -225,6 +231,6 @@ def gather_state(state: TrainState) -> TrainState:
         apply_fn = build_lm(apply_fn.cfg)
     return dataclasses.replace(
         state, params=trainable(whole("params")(state.params)),
-        opt_state=_map_param_trees(state.opt_state, whole("params")),
+        opt_state=map_param_trees(state.opt_state, whole("params")),
         batch_stats=whole("batch_stats")(state.batch_stats),
         apply_fn=apply_fn, mesh=None, placements=None)

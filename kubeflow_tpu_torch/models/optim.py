@@ -63,6 +63,20 @@ def tree_map_with_path(fn, tree: dict[str, Any],
     return out
 
 
+def map_param_trees(node, fn):
+    """``fn`` over every parameter-shaped dict of an optimizer state
+    (AdamW's mu and nu, the SGD chain's trace), its structure kept."""
+    if isinstance(node, dict):
+        return fn(node)
+    if isinstance(node, (list, tuple)):
+        return type(node)(map_param_trees(child, fn) for child in node)
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        return dataclasses.replace(node, **{
+            f.name: map_param_trees(getattr(node, f.name), fn)
+            for f in dataclasses.fields(node)})
+    return node
+
+
 def trainable(params: dict[str, Any]) -> dict[str, Any]:
     """The same nested dict with every leaf a tensor that requires grad
     (the leaves themselves, flagged in place)."""

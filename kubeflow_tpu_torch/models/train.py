@@ -14,10 +14,11 @@ state to host memory before the next step runs (``models/checkpoint``).
 On a mesh (``parallel.make_mesh``) each rank's state holds its shards,
 ``state.placements`` records every leaf's placement
 (:func:`state_shardings`), and the steps run the collectives by hand:
-:func:`gather_fsdp` before the forward, :func:`reduce_gradients` after
-the backward. Pipelines and expert parallelism (``pp``, ``ep``),
-checkpoints on a mesh, step telemetry, goodput and the autopilot's
-cadence signal belong to later slices and raise here.
+fsdp's gathers (``parallel.fsdp``), whose backward reduce-scatters, and
+:func:`reduce_gradients` after the backward. A checkpointed run on a
+mesh writes each rank's shards and resumes on another mesh
+(``models/checkpoint``). Pipelines (``pp``), step telemetry, goodput and
+the autopilot's cadence signal belong to later slices and raise here.
 """
 
 from __future__ import annotations
@@ -41,12 +42,12 @@ from kubeflow_tpu_torch.models.optim import (
     tree_map_with_path,
 )
 from kubeflow_tpu_torch.parallel.collectives import (
-    all_gather_dim,
     all_reduce,
     all_reduce_flat,
-    reduce_scatter_dim,
 )
+from kubeflow_tpu_torch.parallel.fsdp import gather_leaves
 from kubeflow_tpu_torch.parallel.mesh import (
+    AXES,
     gather_block,
     local_block,
     param_sharding,
@@ -77,15 +78,11 @@ class TrainState:
 
 
 def refuse_unported_axes(mesh) -> None:
-    """Pipelines and expert parallelism on a mesh are later slices."""
+    """Pipelines on a mesh are a later slice."""
     if mesh.shape["pp"] > 1:
         raise NotImplementedError(
             "pipeline parallelism (pp > 1) belongs to a later slice of the "
             "port (ROADMAP A10b)")
-    if mesh.shape["ep"] > 1:
-        raise NotImplementedError(
-            "expert parallelism (ep > 1) belongs to a later slice of the "
-            "port (ROADMAP A10c)")
 
 
 def state_shardings(state, mesh, tp_rules: dict | None = None) -> dict:
@@ -101,42 +98,32 @@ def state_shardings(state, mesh, tp_rules: dict | None = None) -> dict:
             for group in ("params", "batch_stats")}
 
 
-def gather_fsdp(mesh, params: dict[str, Any],
-                placements: dict[str, tuple]) -> dict[str, Any]:
-    """The weights a rank computes with: each fsdp-sharded shard
-    all-gathered over fsdp into a new tensor that requires grad when its
-    shard does (its gradient is then this rank's whole-leaf gradient,
-    which :func:`reduce_gradients` reduce-scatters); every other leaf as
-    it is."""
-    def fetch(path, leaf):
-        placement = placements[path]
-        if "fsdp" not in placement:
-            return leaf
-        whole = all_gather_dim(leaf.detach(), placement.index("fsdp"),
-                               mesh.group("fsdp"))
-        return whole.requires_grad_(leaf.requires_grad)
-
-    return tree_map_with_path(fetch, params)
+def gradient_axes(placement: tuple, data_axes: tuple,
+                  whole_over_sp: bool = False) -> tuple:
+    """The axes a leaf's gradient is all-reduced over after the backward:
+    the axes that split the data (``data_axes``), less fsdp where fsdp
+    shards the leaf (its gather's backward reduce-scattered the gradient
+    already, ``parallel.fsdp.GatherShard``), less sp where the leaf's
+    layer ran on the whole sequence (``whole_over_sp``: the MoE layer's
+    gradients are whole and equal on every sp rank)."""
+    return tuple(a for a in data_axes
+                 if not (a == "fsdp" and "fsdp" in placement)
+                 and not (a == "sp" and whole_over_sp))
 
 
-def reduce_gradients(mesh, grads, placements, data_axes) -> list:
-    """Sum each leaf's gradient over the mesh axes that split the data
-    (``data_axes``: the batch's, and the sequence's for the LM) and keep
-    this rank's shard: reduce-scatter over fsdp for a leaf fsdp shards,
-    then one all-reduce per (axes, dtype) bucket over the rest. Never
-    over tp or the other axes, which replicate the computation."""
+def reduce_gradients(mesh, grads, axes: list) -> list:
+    """Sum each leaf's gradient over its ``axes`` (:func:`gradient_axes`;
+    none for a leaf whose gradient is complete), one all-reduce per
+    (axes, dtype) bucket in the leaves' order. Never over tp or ep, which
+    replicate the computation."""
     out = list(grads)
     buckets: dict[tuple, list[int]] = {}
-    for i, (g, placement) in enumerate(zip(grads, placements)):
-        axes = tuple(data_axes)
-        if "fsdp" in placement:
-            out[i] = reduce_scatter_dim(g, placement.index("fsdp"),
-                                        mesh.group("fsdp"))
-            axes = tuple(a for a in axes if a != "fsdp")
-        if axes:
-            buckets.setdefault((axes, g.dtype), []).append(i)
-    for (axes, _), idx in buckets.items():
-        reduced = all_reduce_flat([out[i] for i in idx], mesh.group(axes))
+    for i, (g, leaf_axes) in enumerate(zip(grads, axes)):
+        if leaf_axes:
+            buckets.setdefault((leaf_axes, g.dtype), []).append(i)
+    for (leaf_axes, _), idx in buckets.items():
+        reduced = all_reduce_flat([out[i] for i in idx],
+                                  mesh.group(leaf_axes))
         for i, g in zip(idx, reduced):
             out[i] = g
     return out
@@ -198,9 +185,10 @@ def make_train_step(mesh=None, smoothing: float = 0.1):
     (dp, fsdp) rows, takes every BatchNorm's moments over the whole batch
     (its sums all-reduced over the (dp, fsdp) group, forward and
     backward), scales the loss by the rank's share of the batch so the
-    ranks' losses sum to the global mean, gathers fsdp-sharded weights
-    before the forward and reduces the gradients over (dp, fsdp) after
-    the backward (:func:`reduce_gradients`). Loss and accuracy are the
+    ranks' losses sum to the global mean, gathers every fsdp-sharded
+    weight whole before the forward (their gradients reduce-scattered in
+    the backward) and all-reduces the gradients over the rest of (dp,
+    fsdp) after it (:func:`reduce_gradients`). Loss and accuracy are the
     whole batch's means."""
     group = None
     if mesh is not None:
@@ -218,19 +206,20 @@ def make_train_step(mesh=None, smoothing: float = 0.1):
             rows = mesh.slice(IMAGE_DATA_AXES, images.shape[0])
             share = (rows.stop - rows.start) / images.shape[0]
             images, labels = images[rows], labels[rows]
-            weights = gather_fsdp(mesh, weights, placements["params"])
+            weights = gather_leaves(mesh, weights, placements["params"])
             stats = tree_map_with_path(
                 lambda path, t: gather_block(
                     mesh, t, placements["batch_stats"][path]), stats)
         logits, new_stats = state.apply_fn(weights, stats, images,
                                            train=True, group=group)
         loss = cross_entropy(logits, labels, smoothing) * share
-        paths = [path for path, _ in flatten(weights)]
-        grads = torch.autograd.grad(loss, [t for _, t in flatten(weights)])
+        paths = [path for path, _ in flatten(state.params)]
+        grads = torch.autograd.grad(loss,
+                                    [t for _, t in flatten(state.params)])
         if mesh is not None:
-            grads = reduce_gradients(
-                mesh, grads, [placements["params"][p] for p in paths],
-                IMAGE_DATA_AXES)
+            grads = reduce_gradients(mesh, grads, [
+                gradient_axes(placements["params"][p], IMAGE_DATA_AXES)
+                for p in paths])
             new_stats = tree_map_with_path(
                 lambda path, t: local_block(
                     mesh, t, placements["batch_stats"][path]), new_stats)
@@ -323,12 +312,8 @@ def realign_batches(batches, start_step, *, strict: bool = True):
     return iterator
 
 
-def _refuse_unported(mesh, tp_rules, telemetry, goodput, goodput_publish,
+def _refuse_unported(telemetry, goodput, goodput_publish,
                      cadence_signal) -> None:
-    if mesh is not None or tp_rules is not None:
-        raise NotImplementedError(
-            "checkpointed runs on a mesh belong to a later slice of the "
-            "port (ROADMAP A10c)")
     if telemetry is not None or goodput is not None \
             or goodput_publish is not None:
         raise NotImplementedError(
@@ -366,23 +351,32 @@ def run_with_checkpointing(step_fn, state, batches, manager, *,
       or signal trigger armed, process 0's decision at each step
       boundary ("run", "save" or "stop") is broadcast through
       ``manager.broadcast_from_zero`` and every rank obeys it.
+    - **mesh**: with ``mesh`` the state trains on it (a whole state is
+      laid onto it first with ``shard_state(state, mesh, tp_rules)``,
+      the LM at its model's layout; one on another mesh is refused), its saves record the mesh's shape
+      in the manifest's fingerprint and write each rank's shards, and the
+      resume reads each rank's region of whatever mesh saved the step:
+      ``report.resharded`` says the saved and live fingerprints differ
+      (the restore outcome ``resumed_cross_topology``). The manager must
+      span the world (``process_count`` = its size).
     - **phases**: with a :class:`~kubeflow_tpu_torch.obs.PhaseProfiler`
       each iteration is split into ``fetch``, ``step`` (host-synced)
       and ``save``, plus ``restore`` for the resume; with a
       :class:`~kubeflow_tpu_torch.obs.FlightRecorder` each step lands
       one ``train_step`` snapshot.
 
-    ``mesh``/``tp_rules`` (ROADMAP A10c), ``telemetry``, ``goodput`` and
-    ``goodput_publish`` (A11) and ``cadence_signal`` (A5 leftovers) are
-    not ported and raise when given.
+    ``telemetry``, ``goodput`` and ``goodput_publish`` (A11) and
+    ``cadence_signal`` (A5 leftovers) are not ported and raise when
+    given.
 
     Returns ``(state, RunReport)``. The caller owns data-order alignment
     with the global step (:func:`realign_batches`); the resume happens
     before the first batch is drawn.
     """
-    _refuse_unported(mesh, tp_rules, telemetry, goodput, goodput_publish,
-                     cadence_signal)
+    _refuse_unported(telemetry, goodput, goodput_publish, cadence_signal)
     report = RunReport()
+    if mesh is not None:
+        state = _onto_mesh(state, mesh, tp_rules, manager)
 
     def _phase(name: str):
         return (profiler.phase(name) if profiler is not None
@@ -492,6 +486,26 @@ def run_with_checkpointing(step_fn, state, batches, manager, *,
         if previous_handler is not None:
             signal.signal(signal.SIGTERM, previous_handler)
     return state, report
+
+
+def _onto_mesh(state, mesh, tp_rules, manager):
+    """The run's state on ``mesh`` and the manager's fingerprint stamped
+    with the mesh's shape (assigned: the live mesh is this run's truth,
+    as the reference's loop assigns ``mesh.devices.shape``)."""
+    from kubeflow_tpu_torch.models.convert import shard_state
+
+    if getattr(state, "mesh", None) is None:
+        state = shard_state(state, mesh, tp_rules)
+    elif state.mesh is not mesh:
+        raise ValueError("the state is on another mesh than the run's")
+    world = mesh.size(AXES)
+    if getattr(manager, "process_count", world) != world:
+        raise ValueError(
+            f"a run on a mesh of {world} ranks needs a manager with "
+            f"process_count={world}, not {manager.process_count}")
+    if hasattr(manager, "fingerprint"):
+        manager.fingerprint["mesh"] = [int(d) for d in mesh.spec.shape]
+    return state
 
 
 def _state_step(state) -> int:

@@ -23,13 +23,14 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch._device import resolve_device
 from kubeflow_tpu_torch.models.optim import AdamW, flatten, trainable
 from kubeflow_tpu_torch.models.train import (
     TrainState,
-    gather_fsdp,
+    gradient_axes,
     reduce_gradients,
     refuse_unported_axes,
 )
@@ -52,6 +53,7 @@ from kubeflow_tpu_torch.parallel.collectives import (
     ScatterToGroup,
     all_reduce,
 )
+from kubeflow_tpu_torch.parallel.fsdp import GatherShard, gathered_call
 from kubeflow_tpu_torch.parallel.mesh import param_sharding
 
 AttnImpl = Callable[..., torch.Tensor]  # (q, k, v, causal=, segment_ids=)
@@ -170,14 +172,38 @@ def _topk_choices(probs, k: int) -> list[torch.Tensor]:
     return onehots
 
 
-def _topk_routing(cfg: LMConfig, probs, cap: int, sow: dict | None):
+def _load_balance_aux(first, probs, data=None):
+    """Switch's load-balance aux (eq. 4, over first choices): E times the
+    sum over experts of the fraction of tokens times the fraction of
+    router mass. Both fractions are means over every token of the batch:
+    where ranks split the rows (``data``: their group and its size) the
+    token counts are all-reduced over them and each rank's router mass is
+    its share of the global one, so the value is the global aux while its
+    gradient is this rank's part of it (the step sums gradients over the
+    data axes)."""
+    e = probs.shape[-1]
+    n = probs.shape[0] * probs.shape[1]
+    tokens, mass = first.sum(dim=(0, 1)), probs.sum(dim=(0, 1))
+    if data is not None:
+        n *= data[1]
+        tokens = all_reduce(tokens, data[0])
+    share = e * (tokens / n * (mass / n)).sum()
+    if data is None:
+        return share
+    whole = all_reduce(share.detach().clone(), data[0])
+    return share + (whole - share).detach()
+
+
+def _topk_routing(cfg: LMConfig, probs, cap: int, sow: dict | None,
+                  data=None):
     """Tokens choose experts (Switch k=1, GShard k=2;
     :func:`_topk_choices`), each choice's gate its probability; with k > 1
     the selected gates are renormalised (Mixtral). Choice order is priority
     order (GShard): every first choice claims a slot of its expert's
     ``cap`` before any second choice, and an assignment past the capacity
     is dropped (the token falls through the residual). Returns the
-    (B, S, E, C) f32 dispatch and combine tensors.
+    (B, S, E, C) f32 dispatch and combine tensors; ``sow`` receives the
+    load-balance aux (:func:`_load_balance_aux`).
 
     ``torch.argmax`` takes the first of tied maxima, as ``jnp.argmax``
     does, so the choices agree with the reference's wherever the router
@@ -192,10 +218,7 @@ def _topk_routing(cfg: LMConfig, probs, cap: int, sow: dict | None):
         denom = sum(gates)
         gates = [g / (denom + 1e-9) for g in gates]
     if sow is not None:
-        # Load-balance aux (Switch eq. 4 over first choices): fraction of
-        # tokens times fraction of router mass, per expert.
-        sow["moe_aux"] = e * (onehots[0].mean(dim=(0, 1))
-                              * probs.mean(dim=(0, 1))).sum()
+        sow["moe_aux"] = _load_balance_aux(onehots[0], probs, data)
     dispatch_t = probs.new_zeros((b, s, e, cap))
     combine_t = probs.new_zeros((b, s, e, cap))
     claimed = probs.new_zeros((b, 1, e))
@@ -226,26 +249,34 @@ def _expert_choice_routing(probs, cap: int):
 
 
 def moe_route(cfg: LMConfig, p: dict[str, Any], x,
-              sow: dict | None = None):
+              sow: dict | None = None, data=None):
     """The router of one block's ``moe`` params over x (B, S, D), in f32
     (its softmax too), and the configured routing: the (B, S, E, C) f32
     dispatch and combine tensors. ``sow`` receives ``moe_aux`` (top-k
-    only), ``moe_expert_load`` (E,) and ``moe_slot_max``."""
+    only), ``moe_expert_load`` (E,) and ``moe_slot_max``; where ranks
+    split the rows (``data``: their group and its size) all three are
+    the whole batch's."""
     cap = _moe_capacity(cfg, x.shape[1])
     probs = torch.softmax(x.float() @ p["router"]["kernel"].float(), dim=-1)
     if cfg.moe_router == "expert_choice":
         dispatch_t, combine_t = _expert_choice_routing(probs, cap)
     else:
-        dispatch_t, combine_t = _topk_routing(cfg, probs, cap, sow)
+        dispatch_t, combine_t = _topk_routing(cfg, probs, cap, sow, data)
     if sow is not None:
         with torch.no_grad():
-            sow["moe_expert_load"] = dispatch_t.sum(dim=(0, 1, 3))
-            sow["moe_slot_max"] = dispatch_t.sum(dim=1).max()
+            load = dispatch_t.sum(dim=(0, 1, 3))
+            slot_max = dispatch_t.sum(dim=1).max()
+            if data is not None:
+                load = all_reduce(load, data[0])
+                dist.all_reduce(slot_max, op=dist.ReduceOp.MAX,
+                                group=data[0])
+            sow["moe_expert_load"], sow["moe_slot_max"] = load, slot_max
     return dispatch_t, combine_t
 
 
 def moe_dispatch(cfg: LMConfig, x, dispatch_t):
-    """Tokens to the expert-major layout: (E, B, C, D) in ``cfg.dtype``."""
+    """Tokens to the expert-major layout: (E, B, C, D) in ``cfg.dtype``
+    (E: the experts of ``dispatch_t``)."""
     dt = cfg.dtype
     return torch.einsum("bsec,bsd->ebcd", dispatch_t.to(dt).float(),
                         x.to(dt).float()).to(dt)
@@ -260,12 +291,76 @@ def moe_experts(cfg: LMConfig, p: dict[str, Any], expert_in):
                         p["experts_down"].to(dt).float()).to(dt)
 
 
-def moe_combine(cfg: LMConfig, combine_t, expert_out):
+def moe_combine(cfg: LMConfig, combine_t, expert_out, group=None):
     """The experts' outputs back to (B, S, D), weighted by the combine
-    tensor rounded to ``cfg.dtype`` as the reference casts it."""
+    tensor rounded to ``cfg.dtype`` as the reference casts it. With a
+    ``group`` (ep) each rank holds some of the experts: their f32 partial
+    sums are all-reduced before the rounding, as one product is."""
     dt = cfg.dtype
-    return torch.einsum("bsec,ebcd->bsd", combine_t.to(dt).float(),
-                        expert_out.float()).to(dt)
+    out = torch.einsum("bsec,ebcd->bsd", combine_t.to(dt).float(),
+                       expert_out.float())
+    if group is not None:
+        out = ReduceFromGroup.apply(out, group)
+    return out.to(dt)
+
+
+class ExpertParallel:
+    """The MoE layer on a mesh, computing what the reference's GSPMD
+    computes on its sharded ``experts_*`` stacks, with the collectives
+    written out.
+
+    - Routing is over the whole sequence (capacity from the global S,
+      top-k slots a cumsum over it, expert choice over all of it), so
+      under sp the layer all-gathers its input's columns
+      (:class:`GatherFromGroup`), routes and runs the experts on every
+      column, and keeps this rank's (:class:`ScatterToGroup`, whose
+      backward all-gathers the gradient): the layer's backward is whole
+      and equal on every sp rank, and so are its leaves' gradients.
+    - ep replicates the batch: every ep rank routes the same rows
+      alike and runs its E / ep experts (the stacks' ep blocks) on its
+      slice of the dispatch. ``x`` enters the local experts through
+      :class:`CopyToGroup` and the combine tensor through
+      :class:`ScatterToGroup` along the experts (their gradients, which
+      each rank holds for its experts only, are summed / gathered over
+      ep), and the combined output leaves through
+      :class:`ReduceFromGroup`. Every leaf outside the stacks then gets
+      the same gradient on every ep rank.
+    - The aux's two means and the load diagnostics count every row of
+      the batch: where the rows are this rank's block of it
+      (``split_rows``, as the train step passes them) their sums are
+      all-reduced over (dp, fsdp).
+
+    Where ``param_sharding`` left the stacks off ep (E does not divide by
+    ep) every rank runs every expert."""
+
+    def __init__(self, cfg: LMConfig, mesh, placements: dict):
+        first = next(i for i in range(cfg.layers) if is_moe_block(cfg, i))
+        self.mesh = mesh
+        self.on_sp = mesh.shape["sp"] > 1
+        self.on_ep = "ep" in placements[f"block_{first}/moe/experts_up"]
+
+    def __call__(self, cfg: LMConfig, p: dict[str, Any], x,
+                 sow: dict | None = None,
+                 split_rows: bool = False) -> torch.Tensor:
+        mesh = self.mesh
+        if self.on_sp:
+            x = GatherFromGroup.apply(x, 1, mesh.group("sp"))
+        data = (mesh.group(("dp", "fsdp")), mesh.size(("dp", "fsdp")))
+        dispatch_t, combine_t = moe_route(cfg, p, x, sow,
+                                          data if split_rows else None)
+        ep = mesh.group("ep") if self.on_ep else None
+        if ep is not None:
+            experts = p["experts_up"].shape[0]
+            local = slice(mesh.index("ep") * experts,
+                          (mesh.index("ep") + 1) * experts)
+            x = CopyToGroup.apply(x, ep)
+            dispatch_t = dispatch_t[:, :, local]
+            combine_t = ScatterToGroup.apply(combine_t, 2, ep)
+        expert_out = moe_experts(cfg, p, moe_dispatch(cfg, x, dispatch_t))
+        out = moe_combine(cfg, combine_t, expert_out, ep)
+        if self.on_sp:
+            out = ScatterToGroup.apply(out, 1, mesh.group("sp"))
+        return out
 
 
 def moe_ffn(cfg: LMConfig, p: dict[str, Any], x,
@@ -274,7 +369,8 @@ def moe_ffn(cfg: LMConfig, p: dict[str, Any], x,
     D) -> (B, S, D). The router runs in f32; dispatch, the experts and
     the combine are dense products in ``cfg.dtype`` with f32
     accumulation (:func:`moe_route`, :func:`moe_dispatch`,
-    :func:`moe_experts`, :func:`moe_combine`)."""
+    :func:`moe_experts`, :func:`moe_combine`). On a mesh the model runs
+    :class:`ExpertParallel` instead."""
     dispatch_t, combine_t = moe_route(cfg, p, x, sow)
     expert_out = moe_experts(cfg, p, moe_dispatch(cfg, x, dispatch_t))
     return moe_combine(cfg, combine_t, expert_out)
@@ -386,7 +482,7 @@ class TensorParallel:
 
     def __init__(self, cfg: LMConfig, mesh, placements: dict):
         tp = mesh.shape["tp"]
-        self.cfg, self.group = cfg, mesh.group("tp")
+        self.cfg, self.mesh = cfg, mesh
         self.sharded = {name: "tp" in placements[f"block_0/{name}/kernel"]
                         for name in LM_TP_RULES}
         self.local = {
@@ -395,6 +491,10 @@ class TensorParallel:
                           and cfg.heads % tp == 0
                           and cfg.num_kv_heads % tp == 0),
             "mlp": self.sharded["up"] and self.sharded["down"]}
+
+    @property
+    def group(self):
+        return self.mesh.group("tp")
 
     def column(self, h, p, names, part: str) -> list:
         """``h @ kernel`` for each column kernel of ``names``: this
@@ -432,15 +532,19 @@ class Block:
     FFN, or the MoE layer (``use_moe``), applied to one ``block_<i>``
     parameter dict. ``attn_impl`` is the attention core; without one,
     :func:`_plain_attention`. ``tp`` runs the projections tensor-parallel
-    (:class:`TensorParallel`); ``offset`` is the global position of the
-    first row (a sequence shard's RoPE). ``sow`` receives the MoE
+    (:class:`TensorParallel`) and ``ep`` the MoE layer on the mesh
+    (:class:`ExpertParallel`); ``offset`` is the global position of the
+    first row (a sequence shard's RoPE), ``split_rows`` whether the rows
+    are this rank's block of the batch. ``sow`` receives the MoE
     intermediates."""
 
     def __init__(self, cfg: LMConfig, attn_impl: AttnImpl | None = None,
-                 tp: TensorParallel | None = None):
+                 tp: TensorParallel | None = None,
+                 ep: ExpertParallel | None = None):
         self.cfg = cfg
         self.attn_impl = attn_impl or _plain_attention(cfg.attn_window)
         self.tp = tp
+        self.ep = ep
 
     def _column(self, h, p, names, part):
         if self.tp is None:
@@ -454,7 +558,7 @@ class Block:
 
     def __call__(self, p: dict[str, Any], x, segment_ids=None,
                  use_moe: bool = False, sow: dict | None = None,
-                 offset: int = 0):
+                 offset: int = 0, split_rows: bool = False):
         cfg = self.cfg
         b, s, _ = x.shape
         h = rms_norm(p["RMSNorm_0"]["scale"], x)
@@ -471,6 +575,8 @@ class Block:
         out = out.transpose(1, 2).reshape(b, s, -1)
         x = x + self._row(out, p, "proj", "attention")
         h = rms_norm(p["RMSNorm_1"]["scale"], x)
+        if use_moe and self.ep is not None:
+            return x + self.ep(cfg, p["moe"], h, sow, split_rows)
         if use_moe:
             return x + moe_ffn(cfg, p["moe"], h, sow)
         h, = self._column(h, p, ("up",), "mlp")
@@ -493,44 +599,55 @@ class TransformerLM:
     ``model(params, tokens)`` takes this rank's parameter shards and
     whole sequences: rows of its choosing (the train step gives it its
     (dp, fsdp) rows), every column. It returns those rows at this rank's
-    sp columns. ``model(params, ...)`` is :meth:`forward` on
-    :meth:`gather`'s weights."""
+    sp columns, RoPE at their global positions. Under fsdp the embedding
+    is all-gathered once (:meth:`embedding`; the lookup and the tied head
+    share it), and each block's sharded leaves as the block runs
+    (``parallel.fsdp.gathered_call``): gathered again in the block's
+    backward, their gradients reduce-scattered there."""
 
     def __init__(self, cfg: LMConfig, attn_impl: AttnImpl | None = None,
                  mesh=None):
         self.cfg = cfg
         self.mesh = mesh
         self.placements = None if mesh is None else lm_placements(cfg, mesh)
-        tp = None if mesh is None else TensorParallel(cfg, mesh,
-                                                      self.placements)
-        self.block = Block(cfg, attn_impl, tp)
+        tp = ep = None
+        if mesh is not None:
+            tp = TensorParallel(cfg, mesh, self.placements)
+            if cfg.moe_experts:
+                ep = ExpertParallel(cfg, mesh, self.placements)
+        self.block = Block(cfg, attn_impl, tp, ep)
 
-    def gather(self, params: dict[str, Any]) -> dict[str, Any]:
-        """The weights a rank computes with: its parameter shards, each
-        fsdp-sharded one all-gathered over fsdp (a new tensor that
-        requires grad; its gradient is this rank's whole-leaf gradient,
-        which the train step reduce-scatters). Meshless: ``params``."""
-        if self.mesh is None:
-            return params
-        return gather_fsdp(self.mesh, params, self.placements)
+    def _whole(self, params: dict[str, Any], path: str):
+        group, name = path.split("/")
+        leaf = params[group][name]
+        if self.mesh is None or "fsdp" not in self.placements[path]:
+            return leaf
+        return GatherShard.apply(leaf, self.placements[path].index("fsdp"),
+                                 self.mesh.group("fsdp"))
+
+    def embedding(self, params: dict[str, Any]):
+        """The whole (vocab, dim) embedding from this rank's parameters:
+        all-gathered over fsdp where fsdp shards it (its gradient is
+        reduce-scattered back in the backward), else the leaf itself."""
+        return self._whole(params, "embed/embedding")
 
     def __call__(self, params: dict[str, Any], tokens, segment_ids=None,
-                 return_hidden=False, return_intermediates=False):
-        return self.forward(self.gather(params), tokens, segment_ids,
-                            return_hidden, return_intermediates)
-
-    def forward(self, weights: dict[str, Any], tokens, segment_ids=None,
-                return_hidden=False, return_intermediates=False):
-        """The forward on gathered ``weights``: (rows, S) tokens -> (rows,
-        S / sp, vocab) f32 logits (or hidden states) at this rank's
-        sequence shard, RoPE at its global positions; meshless, the whole
-        sequence from position 0."""
-        cfg = self.cfg
+                 return_hidden=False, return_intermediates=False,
+                 embedding=None, split_rows=False):
+        """(rows, S) tokens -> (rows, S / sp, vocab) f32 logits (or hidden
+        states) at this rank's sequence shard; meshless, the whole
+        sequence from position 0. ``embedding`` is :meth:`embedding`'s
+        result when the caller has it already (the fused loss reads it
+        too). ``split_rows``: the rows are this rank's (dp, fsdp) block of
+        the batch (the train step's), so the MoE layer's batch means and
+        diagnostics all-reduce over those axes; by default every rank
+        holds the rows it is given whole."""
+        cfg, mesh = self.cfg, self.mesh
         if segment_ids is not None:
             check_segment_ids(segment_ids)
-        cols = (slice(0, tokens.shape[1]) if self.mesh is None
-                else self.mesh.slice("sp", tokens.shape[1]))
-        emb = weights["embed"]["embedding"]
+        cols = (slice(0, tokens.shape[1]) if mesh is None
+                else mesh.slice("sp", tokens.shape[1]))
+        emb = self.embedding(params) if embedding is None else embedding
         x = emb[tokens[:, cols]].to(cfg.dtype)
         seg = None if segment_ids is None else segment_ids[:, cols]
         intermediates: dict[str, dict] = {}
@@ -539,9 +656,13 @@ class TransformerLM:
             sow = None
             if use_moe and return_intermediates:
                 sow = intermediates.setdefault(f"block_{i}", {})
-            x = self.block(weights[f"block_{i}"], x, seg, use_moe=use_moe,
-                           sow=sow, offset=cols.start)
-        x = rms_norm(weights["final_norm"]["scale"], x)
+            x = gathered_call(
+                mesh, lambda w: self.block(w, x, seg, use_moe=use_moe,
+                                           sow=sow, offset=cols.start,
+                                           split_rows=split_rows),
+                params[f"block_{i}"], self.placements, f"block_{i}",
+                cfg.dtype)
+        x = rms_norm(self._whole(params, "final_norm/scale"), x)
         out = x if return_hidden else tied_head(x, emb, cfg.dtype)
         return (out, intermediates) if return_intermediates else out
 
@@ -567,14 +688,6 @@ def check_tp_layout(cfg: LMConfig, mesh) -> None:
         )
 
 
-def _refuse_unported(cfg: LMConfig, mesh) -> None:
-    refuse_unported_axes(mesh)
-    if cfg.moe_experts:
-        raise NotImplementedError(
-            "MoE on a mesh (expert-parallel dispatch) belongs to a later "
-            "slice of the port (ROADMAP A10c)")
-
-
 def build_lm(cfg: LMConfig, mesh=None,
              use_flash: bool | None = None) -> TransformerLM:
     """Pick the attention core: ring attention over the mesh's ``sp``
@@ -589,7 +702,7 @@ def build_lm(cfg: LMConfig, mesh=None,
     check_tp_layout(cfg, mesh)
     window = cfg.attn_window
     if mesh is not None:
-        _refuse_unported(cfg, mesh)
+        refuse_unported_axes(mesh)
         if mesh.shape["sp"] > 1:
             group = mesh.group("sp")
 
@@ -664,7 +777,7 @@ def create_lm_state(model: TransformerLM, seed: int = 0, tx=None,
         return state
     from kubeflow_tpu_torch.models.convert import shard_state
 
-    return shard_state(state, mesh, tp_rules=LM_TP_RULES, apply_fn=model)
+    return shard_state(state, mesh, apply_fn=model)
 
 
 # The "auto" loss crossover of the reference (a sequence length): the
@@ -714,70 +827,85 @@ def make_lm_train_step(mesh=None, moe_aux_weight: float | None = None,
       predicts nothing; each rank's loss is its positions' NLL sum over
       the WHOLE batch's count, so the ranks' losses sum to the global
       mean (reported all-reduced over dp, fsdp and sp);
-    - fsdp: the model all-gathers its sharded weights before use
-      (``TransformerLM.gather``), and their gradients are
-      reduce-scattered after the backward;
+    - fsdp: the model all-gathers the embedding once and each block's
+      sharded leaves as the block runs, again in its backward, where
+      their gradients are reduce-scattered (``parallel.fsdp``); the
+      embedding's gradient is reduce-scattered at the backward's end;
     - tp: Megatron's conjugate pair inside each block
       (:class:`TensorParallel`);
-    - dp and sp (and fsdp for leaves it does not shard): the gradients
-      are all-reduced over the axes that split the batch and the
-      sequence, never over tp, where the conjugate pair already made the
-      replicated leaves' gradients whole and equal;
+    - MoE: :class:`ExpertParallel` (experts on ep, routing over the
+      whole sequence, the aux's means over the whole batch); the loss
+      counts the aux once;
+    - dp and sp (and fsdp for leaves it does not shard): after the
+      backward the gradients are all-reduced over the axes that split
+      the batch and the sequence (:func:`gradient_axes`), never over tp
+      or ep, where the conjugate pairs already made the replicated
+      leaves' gradients whole and equal, and the MoE leaves' never over
+      sp, which their layer made whole and equal the same way;
     - AdamW then runs on each rank's shards.
 
-    Every collective of the backward runs inside a block (tp) or on the
-    ring (sp); the fsdp, dp and sp reductions come after it, in the
-    parameters' order, so ranks whose ring skips other hops (their
-    packed rows differ) cannot wait on each other out of order.
-    Meshless, the same step runs on the whole batch with no collective."""
+    The collectives inside the backward (tp's, the ring's, the MoE
+    layer's and fsdp's) run in the reverse of the forward's order on
+    every rank, ranks whose ring skips other hops included
+    (``parallel.fsdp``); the remaining reductions come after it, in the
+    parameters' order. Meshless, the same step runs on the whole batch
+    with no collective."""
     loss_cfg = cfg or LMConfig()
     if moe_aux_weight is None:
         moe_aux_weight = loss_cfg.moe_aux_weight
     if mesh is not None:
-        _refuse_unported(loss_cfg, mesh)
+        refuse_unported_axes(mesh)
 
     def step(state, batch):
         model = state.apply_fn
         if getattr(model, "mesh", None) is not mesh:
             raise ValueError("the state is not on this mesh: "
                              "create_lm_state(model, mesh=mesh) or "
-                             "shard_state(state, mesh, LM_TP_RULES)")
+                             "shard_state(state, mesh)")
+        if mesh is not None and state.placements["params"] != model.placements:
+            raise ValueError("the state's placements are not its model's "
+                             "layout (LM_TP_RULES): lay it out with "
+                             "shard_state(state, mesh)")
         tokens, seg = batch["tokens"], batch.get("segment_ids")
         targets, valid = next_token_targets(tokens, seg)
         rows = cols = slice(None)
+        emb = state.params["embed"]["embedding"]
         if mesh is not None:
             rows = mesh.slice(("dp", "fsdp"), tokens.shape[0])
             cols = mesh.slice("sp", tokens.shape[1])
             seg = None if seg is None else seg[rows]
+            emb = model.embedding(state.params)
         shard = {"targets": targets[rows, cols], "valid": valid[rows, cols],
                  "count": valid.sum().clamp_min(1.0)}
         fused = _fused(loss_cfg, tokens.shape[1])
         moe = getattr(getattr(model, "cfg", None), "moe_experts", 0)
-        if mesh is None:
-            weights, forward = state.params, model
-        else:
-            weights, forward = model.gather(state.params), model.forward
-        out, intermediates = forward(weights, tokens[rows], seg,
-                                     return_hidden=fused,
-                                     return_intermediates=True)
+        out, intermediates = model(state.params, tokens[rows], seg,
+                                   return_hidden=fused,
+                                   return_intermediates=True, embedding=emb,
+                                   split_rows=mesh is not None)
         if fused:
-            loss = fused_lm_loss(out, weights["embed"]["embedding"],
-                                 block=loss_cfg.ce_block, **shard)
+            ce = fused_lm_loss(out, emb, block=loss_cfg.ce_block, **shard)
         else:
-            loss = lm_loss(out, **shard)
+            ce = lm_loss(out, **shard)
+        loss, aux = ce, None
         if moe:
-            loss = loss + moe_aux_weight * moe_aux_total(intermediates)
-        paths = [path for path, _ in flatten(weights)]
-        grads = torch.autograd.grad(loss, [t for _, t in flatten(weights)])
+            aux = moe_aux_weight * moe_aux_total(intermediates)
+            loss = ce + aux
+        paths = [path for path, _ in flatten(state.params)]
+        grads = torch.autograd.grad(loss,
+                                    [t for _, t in flatten(state.params)])
         if mesh is not None:
-            grads = reduce_gradients(mesh, grads,
-                                     [model.placements[p] for p in paths],
-                                     LM_DATA_AXES)
+            grads = reduce_gradients(mesh, grads, [
+                gradient_axes(model.placements[p], LM_DATA_AXES,
+                              whole_over_sp="/moe/" in p) for p in paths])
         with torch.no_grad():
             state.tx.update(grads, state.opt_state, state.params)
         loss = loss.detach()
         if mesh is not None:
-            loss = all_reduce(loss.clone(), mesh.group(LM_DATA_AXES))
+            # The aux is already the whole batch's on every rank.
+            loss = all_reduce(ce.detach().clone(), mesh.group(LM_DATA_AXES))
+            if aux is not None:   # a float 0 under expert choice
+                loss = loss + (aux.detach() if torch.is_tensor(aux) else aux)
         state.step += 1
         return state, {"loss": loss}
 

@@ -12,6 +12,7 @@ from kubeflow_tpu_torch.parallel.mesh import (
     AXES,
     Mesh,
     MeshSpec,
+    Sharding,
     auto_mesh,
     batch_sharding,
     gather_block,
@@ -27,6 +28,7 @@ __all__ = [
     "AXES",
     "Mesh",
     "MeshSpec",
+    "Sharding",
     "make_mesh",
     "make_multislice_mesh",
     "auto_mesh",

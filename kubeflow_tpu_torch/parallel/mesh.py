@@ -11,11 +11,12 @@ fixed platform-wide so models, optimizers, and checkpoints agree:
 - ``"sp"``   — sequence/context parallel (ring attention)
 - ``"ep"``   — expert parallel (MoE experts sharded)
 
-A mesh here is one process per device: the world's ranks laid row-major
-over :data:`AXES`, as the reference reshapes ``jax.devices()``, so rank
-*r* holds the block that JAX device *r* holds. :class:`Mesh` keeps the
-``DeviceMesh``, the process groups of each axis and of the axis sets the
-train steps reduce over, and this rank's coordinates.
+A mesh here is one process per device: the world's ranks (or some of
+them) laid row-major over :data:`AXES`, as the reference reshapes
+``jax.devices()``, so rank *r* holds the block that JAX device *r*
+holds. :class:`Mesh` keeps the process groups of each axis and of the
+axis sets the train steps reduce over, and this rank's coordinates;
+:class:`Sharding` is a placement on a mesh.
 
 A placement is what the reference's ``PartitionSpec`` is: one entry per
 dimension of an array, the mesh axis that shards it (or a tuple of axes,
@@ -138,22 +139,22 @@ def _axes(axes) -> tuple[str, ...]:
 
 
 class Mesh:
-    """The world's ranks as a named grid over :data:`AXES`.
+    """Ranks of the world as a named grid over :data:`AXES`.
 
     ``shape`` maps axis -> size (JAX's ``Mesh.shape``); ``coords`` this
-    rank's index on each axis; ``device_mesh`` the
-    ``torch.distributed.device_mesh.DeviceMesh`` with
-    ``mesh_dim_names=AXES``; :meth:`group` the process group of an axis
-    or of one of :data:`GROUPED_AXES` (its ranks row-major over the
-    axes, so a group rank is :meth:`index` of those axes)."""
+    rank's index on each axis; ``rank`` its position in the grid (its
+    world rank when the mesh spans the world); :meth:`group` the process
+    group of an axis or of one of :data:`GROUPED_AXES` (its ranks
+    row-major over the axes, so a group rank is :meth:`index` of those
+    axes). A mesh needs no world to answer where blocks lie: the
+    checkpoint's region reads and the tests build one from a spec and a
+    rank alone (``groups`` then empty)."""
 
     axis_names = AXES
 
-    def __init__(self, spec: MeshSpec, device, device_mesh, groups: dict,
-                 rank: int):
+    def __init__(self, spec: MeshSpec, device, groups: dict, rank: int):
         self.spec = spec
         self.device = device
-        self.device_mesh = device_mesh
         self.shape = dict(zip(AXES, spec.shape))
         self.rank = rank
         self.coords = dict(zip(AXES, (int(c) for c in
@@ -228,25 +229,31 @@ def _world(device):
     return dev
 
 
-def make_mesh(spec: MeshSpec | None = None, device=None) -> Mesh:
-    """Build a named mesh over the world's ranks.
+def make_mesh(spec: MeshSpec | None = None, device=None,
+              ranks=None) -> Mesh | None:
+    """Build a named mesh over the world's ranks, or over ``ranks`` (an
+    ascending list of world ranks: the reference's ``devices``, as its
+    ``make_mesh(spec, jax.devices()[:4])``).
 
     Without a world (one process, no ``initialize_from_env``) this forms
     a world of one itself, as the reference needs no distributed init on
     one host: NCCL on the card, gloo for ``device="cpu"``; without a
-    card and without ``device="cpu"`` it raises. Every rank must call it,
-    in the same order as every other collective."""
+    card and without ``device="cpu"`` it raises. Every rank of the world
+    must call it, in the same order as every other collective (each
+    group is created by every rank); a rank outside ``ranks`` gets
+    None."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     dev = _world(device)
     world, rank = dist.get_world_size(), dist.get_rank()
-    spec = (spec or MeshSpec()).resolve(world)
-    device_mesh = init_device_mesh(dev.type, spec.shape,
-                                   mesh_dim_names=AXES)
-    groups = {(a,): device_mesh.get_group(a) for a in AXES}
-    grid = np.arange(world).reshape(spec.shape)
-    for axes in GROUPED_AXES:
+    ranks = list(range(world)) if ranks is None else [int(r) for r in ranks]
+    if ranks != sorted(set(ranks)) or not set(ranks) <= set(range(world)):
+        raise ValueError(f"ranks {ranks} are not ascending ranks of a world "
+                         f"of {world}")
+    spec = (spec or MeshSpec()).resolve(len(ranks))
+    grid = np.asarray(ranks).reshape(spec.shape)
+    groups = {}
+    for axes in [(a,) for a in AXES] + list(GROUPED_AXES):
         dims = [AXES.index(a) for a in axes]
         rest = [d for d in range(len(AXES)) if d not in dims]
         rows = grid.transpose(rest + dims).reshape(-1, math.prod(
@@ -255,7 +262,9 @@ def make_mesh(spec: MeshSpec | None = None, device=None) -> Mesh:
             pg = dist.new_group([int(r) for r in row])
             if rank in row:
                 groups[axes] = pg
-    return Mesh(spec, dev, device_mesh, groups, rank)
+    if rank not in ranks:
+        return None
+    return Mesh(spec, dev, groups, ranks.index(rank))
 
 
 def multislice_layout(spec: MeshSpec | None, num_slices: int,
@@ -406,19 +415,58 @@ def param_sharding(mesh, path: tuple, leaf, tp_rules: dict | None = None,
     return replicated()
 
 
+class Sharding:
+    """A placement on a mesh, the reference's ``NamedSharding``: which
+    block of a leaf this rank holds, and whether it holds the first copy
+    of it. A plain class, so a tree walk takes it as a leaf."""
+
+    __slots__ = ("mesh", "spec")
+
+    def __init__(self, mesh: Mesh, spec: Placement):
+        self.mesh, self.spec = mesh, tuple(spec)
+
+    def global_shape(self, local_shape) -> tuple[int, ...]:
+        """The whole leaf's shape from this rank's block's."""
+        shape = list(local_shape)
+        for dim, axes in enumerate(self.spec):
+            if axes is not None:
+                shape[dim] *= self.mesh.size(axes)
+        return tuple(shape)
+
+    def region(self, shape) -> list[list[int]]:
+        """This rank's block of a leaf of global ``shape``, as
+        [[start, stop], ...] per dim (the checkpoint's index form)."""
+        region = [[0, int(d)] for d in shape]
+        for dim, axes in enumerate(self.spec):
+            if axes is None:
+                continue
+            n = self.mesh.size(axes)
+            if shape[dim] % n:
+                raise ValueError(f"dim {dim} of {tuple(shape)} does not "
+                                 f"divide over {axes} ({n})")
+            size = shape[dim] // n
+            start = self.mesh.index(axes) * size
+            region[dim] = [start, start + size]
+        return region
+
+    @property
+    def first_replica(self) -> bool:
+        """True on the rank at coordinate 0 of every axis that does not
+        split the leaf (the reference's ``replica_id == 0``): the one
+        that writes this block."""
+        split = {a for axes in self.spec if axes is not None
+                 for a in _axes(axes)}
+        return all(self.mesh.coords[a] == 0 for a in AXES if a not in split)
+
+    def __repr__(self) -> str:
+        return f"Sharding({self.mesh.shape}, {self.spec})"
+
+
 def local_block(mesh: Mesh, tensor, placement: Placement):
     """This rank's block of a whole ``tensor`` under ``placement``, a
     contiguous copy."""
-    block = tensor
-    for dim, axes in enumerate(placement):
-        if axes is None:
-            continue
-        n = mesh.size(axes)
-        if block.shape[dim] % n:
-            raise ValueError(f"dim {dim} of {tuple(tensor.shape)} does not "
-                             f"divide over {axes} ({n})")
-        size = block.shape[dim] // n
-        block = block.narrow(dim, mesh.index(axes) * size, size)
+    region = Sharding(mesh, placement).region(tuple(tensor.shape))
+    block = tensor[tuple(slice(start, stop) for start, stop in region)]
     return block.contiguous().clone()
 
 

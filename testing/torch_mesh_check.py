@@ -32,10 +32,26 @@ on the whole batch, from the same seed, and compares them:
 - Memory, on the cards: each rank's state bytes at rest, and its peak
   allocation over the state's creation and over one step, above what
   was allocated before, for the train phase's LM (8 x 1024, vocab
-  32768, bf16, batch 4 x 512), mesh and meshless. Printed, not held.
+  32768, bf16, batch 4 x 512), mesh and meshless. Held: fsdp over every
+  card steps below dp over every card (each rank's step peak under
+  fsdp below every rank's under dp: fsdp gathers one block's weights at
+  a time and reduce-scatters their gradients in the backward).
+- MoE in f32 (the LM above with 4 experts in every 2nd block, top-2):
+  on ep over every card, and on sp=2 x ep (cards / 2), against the
+  meshless step with the LM's f32 limits. A rank that skips the
+  combine's all-reduce over ep, or MoE gradients summed over sp as
+  well, fails them.
+- Checkpoints: the f32 LM stepped once on fsdp over every card and
+  saved (each rank its blocks: the shard files' bytes sum to one copy of
+  the state, held), then restored onto dp x tp, tp, sp and a mesh of
+  one card (rank 0 alone): every leaf bit-equal to the saved state and
+  the restore classified cross-topology (held); on each mesh of every
+  card one more step against the meshless step from the same restored
+  state, within the f32 limits (held).
 
-Rank 0 prints one JSON line per spec and the card's name and power
-limit; the script exits 1 if any held check fails.
+Rank 0 prints one JSON line per spec, then the ``moe``, ``ckpt`` and
+``memory`` lines, and the card's name and power limit; the script exits
+1 if any held check fails.
 
 Run from the root of a checkout on a host with 2 to 8 cards and nvcc:
 ``python3 testing/torch_mesh_check.py [cards]`` (default 4). With
@@ -50,6 +66,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
@@ -72,15 +89,31 @@ SPECS = {
 }
 
 
-def lm_config(torch, precision: str, cpu: bool):
+# MoE and checkpoint specs per world size.
+MOE_SPECS = {4: [dict(dp=1, ep=4), dict(dp=1, sp=2, ep=2)],
+             2: [dict(dp=1, ep=2)]}
+CKPT_TARGETS = {4: [dict(dp=2, tp=2), dict(dp=1, tp=4), dict(dp=1, sp=4)],
+                2: [dict(dp=1, tp=2), dict(dp=1, sp=2)]}
+MOE = dict(moe_experts=4, moe_top_k=2)
+
+
+def lm_config(torch, precision: str, cpu: bool, **extra):
     from kubeflow_tpu_torch.models import LMConfig
 
     dtype = torch.float32 if precision == "f32" else torch.bfloat16
     if cpu:
         return LMConfig(vocab=256, layers=2, dim=64, heads=4,
-                        dtype=dtype), (8, 64)
+                        dtype=dtype, **extra), (8, 64)
     return LMConfig(vocab=8192, layers=2, dim=512, heads=4,
-                    dtype=dtype), (8, 1024)
+                    dtype=dtype, **extra), (8, 1024)
+
+
+def f32_adamw(torch, precision: str):
+    from kubeflow_tpu_torch.models import AdamW
+
+    opt = (dict(lr=F32_LR, eps=F32_EPS, mu_dtype=torch.float32)
+           if precision == "f32" else dict(lr=LR, mu_dtype=torch.bfloat16))
+    return Recording(AdamW(weight_decay=0.01, **opt))
 
 
 def rel(a, b) -> float:
@@ -102,43 +135,55 @@ class Recording:
         self.tx.update(grads, state, params)
 
 
-def lm_check(torch, mesh, precision: str, cpu: bool) -> dict:
-    from kubeflow_tpu_torch.models import (
-        AdamW,
-        build_lm,
-        create_lm_state,
-        gather_state,
-        init_params,
-        make_lm_train_step,
-    )
+def step_pair(torch, states: dict, cfg, tokens, before: dict) -> dict:
+    """One step of each of ``states`` ({"meshless": state, "mesh":
+    state on its mesh}, each with a :class:`Recording` optimizer): its
+    loss, its whole gradients and its update (parameters after the step
+    minus ``before``) by path."""
+    from kubeflow_tpu_torch.models import gather_state, make_lm_train_step
     from kubeflow_tpu_torch.models.optim import flatten
     from kubeflow_tpu_torch.parallel import gather_block
 
-    cfg, shape = lm_config(torch, precision, cpu)
-    gen = torch.Generator(device=mesh.device).manual_seed(17)
-    tokens = torch.randint(0, cfg.vocab, shape, generator=gen,
-                           device=mesh.device)
-    before = dict(flatten(init_params(cfg, seed=0, device=mesh.device)))
-    opt = (dict(lr=F32_LR, eps=F32_EPS, mu_dtype=torch.float32)
-           if precision == "f32" else dict(lr=LR, mu_dtype=torch.bfloat16))
     runs = {}
-    for name, m in (("meshless", None), ("mesh", mesh)):
-        tx = Recording(AdamW(weight_decay=0.01, **opt))
-        model = build_lm(cfg, m, use_flash=None if precision == "bf16"
-                         else False)
-        state = create_lm_state(model, seed=0, tx=tx, mesh=m,
-                                device=mesh.device)
+    for name, state in states.items():
+        m = state.mesh
+        tx = state.tx
         state, metrics = make_lm_train_step(m, cfg=cfg)(
             state, {"tokens": tokens})
         paths = [p for p, _ in flatten(state.params)]
         grads = dict(zip(paths, tx.grads))
         if m is not None:
-            grads = {p: gather_block(mesh, g, state.placements["params"][p])
+            grads = {p: gather_block(m, g, state.placements["params"][p])
                      for p, g in grads.items()}
             state = gather_state(state)
         updates = {p: t.detach() - before[p]
                    for p, t in flatten(state.params)}
         runs[name] = (float(metrics["loss"]), grads, updates)
+    return runs
+
+
+def lm_check(torch, mesh, precision: str, cpu: bool, **extra) -> dict:
+    from kubeflow_tpu_torch.models import (
+        build_lm,
+        create_lm_state,
+        init_params,
+    )
+    from kubeflow_tpu_torch.models.optim import flatten
+
+    cfg, shape = lm_config(torch, precision, cpu, **extra)
+    gen = torch.Generator(device=mesh.device).manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab, shape, generator=gen,
+                           device=mesh.device)
+    before = dict(flatten(init_params(cfg, seed=0, device=mesh.device)))
+    states = {name: create_lm_state(
+        build_lm(cfg, m, use_flash=None if precision == "bf16" else False),
+        seed=0, tx=f32_adamw(torch, precision), mesh=m, device=mesh.device)
+        for name, m in (("meshless", None), ("mesh", mesh))}
+    return compare(step_pair(torch, states, cfg, tokens, before), precision)
+
+
+def compare(runs: dict, precision: str) -> dict:
+    """The mesh run against the meshless one, within LM_LIMITS."""
     loss, grads, updates = runs["mesh"]
     want_loss, want_grads, want_updates = runs["meshless"]
     loss_err = abs(loss - want_loss) / abs(want_loss)
@@ -208,6 +253,104 @@ def lm_memory(torch, mesh) -> dict:
     return out
 
 
+def ckpt_check(torch, cpu: bool, root: str) -> dict:
+    """Save the f32 LM, stepped once on fsdp over every card, then
+    restore it onto each of CKPT_TARGETS and a mesh of rank 0 alone:
+    bit-equal, cross-topology, and (meshes of every card) one more step
+    against the meshless step from the same state."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import (
+        build_lm,
+        create_lm_state,
+        gather_state,
+        make_lm_train_step,
+    )
+    from kubeflow_tpu_torch.models.checkpoint import (
+        CheckpointManager,
+        CheckpointMetrics,
+        _arrays_only,
+        _flatten_keys,
+    )
+    from kubeflow_tpu_torch.models.optim import flatten
+    from kubeflow_tpu_torch.parallel import AXES, MeshSpec, make_mesh
+
+    device = "cpu" if cpu else None
+    world, rank = dist.get_world_size(), dist.get_rank()
+    cfg, shape = lm_config(torch, "f32", cpu)
+    source = make_mesh(MeshSpec(dp=1, fsdp=world), device=device)
+    gen = torch.Generator(device=source.device).manual_seed(29)
+    tokens = [torch.randint(0, cfg.vocab, shape, generator=gen,
+                            device=source.device) for _ in range(2)]
+
+    def fresh(mesh, seed):
+        return create_lm_state(build_lm(cfg, mesh, use_flash=False),
+                               seed=seed, tx=f32_adamw(torch, "f32"),
+                               mesh=mesh, device=source.device)
+
+    def manager(mesh, **kw):
+        return CheckpointManager(root, process_id=mesh.rank,
+                                 process_count=mesh.size(AXES),
+                                 fingerprint={"mesh": list(mesh.spec.shape)},
+                                 **kw)
+
+    def leaves(state):
+        return dict(_flatten_keys(_arrays_only(state)))
+
+    def equal(a, b) -> bool:
+        la, lb = leaves(a), leaves(b)
+        return la.keys() == lb.keys() and all(
+            torch.equal(x, lb[k]) if isinstance(x, torch.Tensor)
+            else int(x) == int(lb[k]) for k, x in la.items())
+
+    state, _ = make_lm_train_step(source, cfg=cfg)(
+        fresh(source, 0), {"tokens": tokens[0]})
+    manager(source).save(1, state)
+    saved = gather_state(state)
+    wrote = [None] * world
+    dist.all_gather_object(wrote, os.path.getsize(
+        os.path.join(root, "1", f"shard-{rank:05d}.bin")))
+    copy = sum(t.numel() * t.element_size() if isinstance(t, torch.Tensor)
+               else 4 for t in leaves(saved).values())
+    out = {"source": source.shape, "wrote": wrote, "copy_bytes": copy,
+           "bytes_ok": sum(wrote) == copy, "targets": []}
+    ok = out["bytes_ok"]
+    before = {p: t.detach().clone() for p, t in flatten(saved.params)}
+    for spec in CKPT_TARGETS[world] + [None]:
+        ranks = None if spec is not None else [0]
+        mesh = make_mesh(MeshSpec(**(spec or {})), device=device,
+                         ranks=ranks)
+        line = {"spec": spec or "one card"}
+        if mesh is not None:
+            metrics = CheckpointMetrics()
+            mgr = manager(mesh, metrics=metrics)
+            restored, _ = mgr.restore_latest_valid(fresh(mesh, 1))
+            line["bit_equal"] = equal(gather_state(restored), saved)
+            line["cross_topology"] = mgr.last_restore["cross_topology"]
+            good = line["bit_equal"] and line["cross_topology"]
+            if spec is not None:
+                # The meshless twin: the same step restored whole, into
+                # tensors of its own.
+                whole = CheckpointManager(root).restore(1, fresh(None, 2))
+                restored.tx = f32_adamw(torch, "f32")
+                line["step"] = compare(step_pair(
+                    torch, {"meshless": whole, "mesh": restored}, cfg,
+                    tokens[1], before), "f32")
+                good = good and line["step"]["ok"]
+            line["ok"] = good
+        every = [None] * world
+        dist.all_gather_object(every, line.get("ok", True))
+        ok = ok and all(every)
+        out["targets"].append(line)
+    out["ok"] = ok
+    return out
+
+
+def moe_check(torch, mesh, cpu: bool) -> dict:
+    """The MoE LM in f32 on ``mesh`` against the meshless step."""
+    return lm_check(torch, mesh, "f32", cpu, **MOE)
+
+
 def resnet_check(torch, mesh) -> dict:
     from kubeflow_tpu_torch.models import (
         create_train_state,
@@ -265,8 +408,14 @@ def rank_main(cpu: bool) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = "cpu" if cpu else None
     initialize_from_env(device=device)
-    ok = True
-    for spec in SPECS[dist.get_world_size()]:
+    world = dist.get_world_size()
+    ok, memory = True, {}
+
+    def report(line):
+        if dist.get_rank() == 0:
+            print(json.dumps(line), flush=True)
+
+    for spec in SPECS[world]:
         mesh = make_mesh(MeshSpec(**spec), device=device)
         line = {"spec": spec, "backend": dist.get_backend(),
                 "lm_f32": lm_check(torch, mesh, "f32", cpu),
@@ -275,9 +424,32 @@ def rank_main(cpu: bool) -> int:
         ok = ok and all(line[k]["ok"] for k in ("lm_f32", "lm_bf16",
                                                 "resnet"))
         if not cpu:
-            line["lm_memory"] = lm_memory(torch, mesh)
-        if dist.get_rank() == 0:
-            print(json.dumps(line), flush=True)
+            line["lm_memory"] = memory[json.dumps(spec)] = lm_memory(
+                torch, mesh)
+        report(line)
+    for spec in MOE_SPECS[world]:
+        line = {"moe": spec, "lm_f32": moe_check(
+            torch, make_mesh(MeshSpec(**spec), device=device), cpu)}
+        ok = ok and line["lm_f32"]["ok"]
+        report(line)
+    scratch = REPO / "kubeflow_tpu_torch" / "build"
+    scratch.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        root = [tmp]
+        dist.broadcast_object_list(root, src=0)
+        line = {"ckpt": ckpt_check(torch, cpu, root[0])}
+        dist.barrier()
+    ok = ok and line["ckpt"]["ok"]
+    report(line)
+    if not cpu:
+        dp = memory[json.dumps(dict(dp=world))]["mesh"]["step_peak_mb"]
+        fsdp = memory[json.dumps(dict(dp=1, fsdp=world))]["mesh"][
+            "step_peak_mb"]
+        held = max(fsdp) < min(dp)
+        report({"memory": {"fsdp_step_peak_mb": fsdp,
+                           "dp_step_peak_mb": dp,
+                           "fsdp_below_dp": held}})
+        ok = ok and held
     dist.destroy_process_group()
     return 0 if ok else 1
 

@@ -79,14 +79,34 @@ def _flat(tree) -> dict[str, np.ndarray]:
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def _recording_adamw():
-    """The reference LM's AdamW, with the gradients it is given kept in
-    the first entry of the chain's state."""
+# An AdamW whose first step is a smooth function of the gradient, so that
+# an update can be held (lr * g / (|g| + eps), f32 moments): eps above the
+# gradients' rounding, and an lr far above the parameters' f32 spacing, as
+# ``testing/torch_mesh_check.py``'s f32 check. (With the default eps a
+# first step is lr * sign(g), which the 2 lr limit cannot tell from no
+# step at all.) Its update is held at UPDATE_RTOL in relative norm.
+F32_ADAMW = dict(lr=0.1, eps=1e-3)
+UPDATE_RTOL = 1e-4
+
+
+def _recording_adamw(lr=LR, eps=1e-8, mu_dtype=jnp.bfloat16):
+    """The reference LM's AdamW (or one with ``lr``, ``eps`` and
+    ``mu_dtype`` given), with the gradients it is given kept in the first
+    entry of the chain's state."""
     record = optax.GradientTransformation(
         lambda params: jax.tree.map(jnp.zeros_like, params),
         lambda updates, state, params=None: (updates, updates))
-    return optax.chain(record, optax.adamw(LR, weight_decay=0.01,
-                                           mu_dtype=jnp.bfloat16))
+    return optax.chain(record, optax.adamw(lr, eps=eps, weight_decay=0.01,
+                                           mu_dtype=mu_dtype))
+
+
+def update_errors(got_after: dict, want_after: dict, before: dict) -> dict:
+    """Each leaf's update (parameters after the step less before) against
+    the reference's, in relative norm."""
+    return {path: float(np.linalg.norm((got_after[path] - before[path])
+                                       - (want - before[path]))
+                        / np.linalg.norm(want - before[path]))
+            for path, want in want_after.items()}
 
 
 def packed(b, s, seed, docs=3):
@@ -143,14 +163,18 @@ def _segments(key, shape):
     return packed(*shape, seed=key)
 
 
-def _jax_lm_init(spec, cfg_kw, seq):
+def _jax_lm_init(spec, cfg_kw, seq, adamw=None):
     """The reference's mesh, model and state (its own init on its mesh),
-    with the parameters as numpy and each leaf's shard on each device."""
+    with the parameters as numpy and each leaf's shard on each device.
+    ``adamw``: the optimizer's ``lr`` and ``eps`` with f32 moments
+    (:data:`F32_ADAMW`), else the reference LM's."""
     mesh = jmake_mesh(JMeshSpec(**spec))
     cfg = JLMConfig(**cfg_kw)
     model = jbuild_lm(cfg, mesh=mesh)
-    state = jcreate_lm_state(model, jax.random.key(0), (2, seq),
-                             tx=_recording_adamw(), mesh=mesh)
+    tx = (_recording_adamw() if adamw is None
+          else _recording_adamw(mu_dtype=None, **adamw))
+    state = jcreate_lm_state(model, jax.random.key(0), (2, seq), tx=tx,
+                             mesh=mesh)
     shards = {path: {s.device.id: np.asarray(s.data)
                      for s in leaf.addressable_shards}
               for path, leaf in _flat_arrays(state.params).items()}

@@ -73,6 +73,7 @@ from kubeflow_tpu_torch.models import (
 from kubeflow_tpu_torch.models.checkpoint import _arrays_only, _flatten_keys
 from kubeflow_tpu_torch.models.optim import flatten
 from kubeflow_tpu_torch.models.resnet import conv, max_pool, same_pads
+from kubeflow_tpu_torch.parallel import Mesh, MeshSpec
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -421,8 +422,9 @@ def test_port_step_descends_and_moves_the_batch_stats():
 
 def test_meshes_name_a10():
     """Image training on dp/fsdp/tp/sp meshes is ported (tests/
-    test_torch_mesh_train.py); pipelines and expert parallelism still
-    raise, naming A10b and A10c."""
+    test_torch_mesh_train.py), and on ep since A10c: an image model has
+    no expert stacks, so ep replicates every leaf (rank 1 of an ep=2
+    mesh holds the whole state). Pipelines still raise, naming A10b."""
     def mesh_shape(**axes):
         shape = dict(dp=1, pp=1, fsdp=1, tp=1, sp=1, ep=1)
         shape.update(axes)
@@ -431,6 +433,13 @@ def test_meshes_name_a10():
     model = resnet18(num_classes=4, width=8)
     with pytest.raises(NotImplementedError, match="A10b"):
         make_train_step(mesh=mesh_shape(dp=2, pp=2))
-    with pytest.raises(NotImplementedError, match="A10c"):
-        create_train_state(model, 0, (1, 32, 32, 3), mesh=mesh_shape(ep=2),
-                           device="cpu")
+    mesh = Mesh(MeshSpec(dp=1, ep=2).resolve(2), torch.device("cpu"), {}, 1)
+    state = create_train_state(model, 0, (1, 32, 32, 3), mesh=mesh,
+                               device="cpu")
+    whole = create_train_state(model, 0, (1, 32, 32, 3), device="cpu")
+    assert state.mesh is mesh
+    assert all(p == () for group in state.placements.values()
+               for p in group.values())
+    for (path, got), (_, want) in zip(flatten(state.params),
+                                      flatten(whole.params)):
+        assert torch.equal(got, want), path

@@ -52,6 +52,7 @@ from kubeflow_tpu_torch.models import (
     train_state_from_jax,
 )
 from kubeflow_tpu_torch.models.optim import flatten
+from kubeflow_tpu_torch.models.transformer import lm_placements
 from kubeflow_tpu_torch.ops.attention import (
     flash_attention,
     flash_dkv,
@@ -452,15 +453,19 @@ def _mesh_shape(**axes):
 
 def test_unported_training_paths_raise():
     """Meshes train since the parallel slice (tests/
-    test_torch_mesh_train.py); pipelines (pp), expert parallelism (ep)
-    and MoE on a mesh still raise, naming their ROADMAP items."""
+    test_torch_mesh_train.py), expert parallelism and MoE on a mesh
+    since A10c (tests/test_torch_moe_mesh.py): an ep mesh's step builds
+    and an MoE config's expert stacks go on ep. Pipelines (pp) still
+    raise, naming A10b."""
     cfg = LMConfig(dtype=torch.float32, **SMALL)
     with pytest.raises(NotImplementedError, match="A10b"):
         build_lm(cfg, mesh=_mesh_shape(dp=2, pp=2))
-    with pytest.raises(NotImplementedError, match="A10c"):
-        make_lm_train_step(mesh=_mesh_shape(dp=2, ep=2), cfg=cfg)
-    with pytest.raises(NotImplementedError, match="A10c"):
-        build_lm(LMConfig(moe_experts=2, **SMALL), mesh=_mesh_shape(dp=4))
+    assert callable(make_lm_train_step(mesh=_mesh_shape(dp=2, ep=2),
+                                       cfg=cfg))
+    placements = lm_placements(LMConfig(moe_experts=2, **SMALL),
+                               _mesh_shape(dp=4, ep=2))
+    assert placements["block_1/moe/experts_up"][0] == "ep"
+    assert placements["block_1/moe/router/kernel"] == ()
     # MoE training is ported (tests/test_torch_moe.py): its step builds.
     assert callable(make_lm_train_step(cfg=LMConfig(moe_experts=2, **SMALL)))
     state = create_lm_state(build_lm(cfg), seed=0, device="cpu")

@@ -26,6 +26,8 @@ import traceback
 import types
 from pathlib import Path
 
+import numpy as np
+
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -251,18 +253,54 @@ def case_ring_errors(spec, q, k, v):
     return errors
 
 
+class WholeCount:
+    """Counts the fsdp-gathered whole weights alive (by storage) at each
+    gather, the forward's and each one a backward node unpacks (recast
+    and re-viewed as it was saved), while it wraps
+    ``fsdp.GatherShard.forward`` and ``fsdp._Regather.unpack``: ``peak``
+    is the most alive at once, ``gathers`` how many gathers ran."""
+
+    def __init__(self, fsdp):
+        from torch.multiprocessing.reductions import StorageWeakRef
+
+        self._fsdp = fsdp
+        self._forward = forward = fsdp.GatherShard.forward
+        self._unpack = unpack = fsdp._Regather.unpack
+        self._live: list = []
+        self.peak = self.gathers = 0
+
+        def note(whole):
+            self._live = [r for r in self._live if not r.expired()]
+            self._live.append(StorageWeakRef(whole.untyped_storage()))
+            self.gathers += 1
+            self.peak = max(self.peak, len(self._live))
+            return whole
+
+        fsdp.GatherShard.forward = staticmethod(
+            lambda ctx, *args: note(forward(ctx, *args)))
+        fsdp._Regather.unpack = lambda saved: note(unpack(saved))
+
+    def close(self) -> None:
+        self._fsdp.GatherShard.forward = staticmethod(self._forward)
+        self._fsdp._Regather.unpack = self._unpack
+
+
 def case_lm(spec, cfg, params, tokens, segment_ids=None, forward_tokens=None,
-            forward_segment_ids=None, step=True):
+            forward_segment_ids=None, step=True, adamw=None):
     """The LM on a mesh from the reference's parameters (numpy): this
     rank's parameter shards, the model's output at its rows (every row of
-    ``forward_tokens``) and sp columns, and one train step on the whole
-    batch: its loss, the whole gradients and parameters after it."""
+    ``forward_tokens``) and sp columns (for an MoE config with what its
+    blocks sow: ``moe_aux`` and ``moe_expert_load`` per block), and one
+    train step on the whole batch: its loss, the whole gradients and
+    parameters after it, and the most fsdp-gathered weights alive at
+    once in the step (:class:`WholeCount`). ``adamw``: the optimizer's
+    ``lr`` and ``eps`` with f32 moments, else the reference LM's."""
     import torch
 
+    from kubeflow_tpu_torch.parallel import fsdp
     from kubeflow_tpu_torch.models import (
         AdamW,
         LMConfig,
-        LM_TP_RULES,
         TrainState,
         build_lm,
         gather_state,
@@ -274,27 +312,36 @@ def case_lm(spec, cfg, params, tokens, segment_ids=None, forward_tokens=None,
 
     mesh = _mesh(spec)
     cfg = LMConfig(**cfg)
-    tx = Recording(AdamW(3e-4, weight_decay=0.01, mu_dtype=torch.bfloat16))
+    tx = Recording(AdamW(3e-4, weight_decay=0.01, mu_dtype=torch.bfloat16)
+                   if adamw is None else AdamW(weight_decay=0.01, **adamw))
     whole = trainable(params_from_jax(cfg, params, device="cpu",
                                       dtype=torch.float32))
     state = shard_state(
         TrainState(step=0, params=whole, opt_state=tx.init(whole), tx=tx,
-                   apply_fn=build_lm(cfg)), mesh, tp_rules=LM_TP_RULES)
+                   apply_fn=build_lm(cfg)), mesh)
     result = {"rank": mesh.rank, "coords": mesh.coords,
               "shards": {p: _np(t) for p, t in flatten(state.params)}}
     if forward_tokens is not None:
         seg = (None if forward_segment_ids is None
                else torch.from_numpy(forward_segment_ids))
         with torch.no_grad():
-            out = state.apply_fn(state.params, torch.from_numpy(
-                forward_tokens), seg)
+            out, sown = state.apply_fn(state.params, torch.from_numpy(
+                forward_tokens), seg, return_intermediates=True)
         result["logits"] = _np(out)
         result["cols"] = mesh.slice("sp", forward_tokens.shape[1]).start
+        result["sown"] = {blk: {k: _np(v) for k, v in vals.items()
+                                if k in ("moe_aux", "moe_expert_load")}
+                          for blk, vals in sown.items()}
     if step:
         batch = {"tokens": torch.from_numpy(tokens)}
         if segment_ids is not None:
             batch["segment_ids"] = torch.from_numpy(segment_ids)
-        state, metrics = make_lm_train_step(mesh, cfg=cfg)(state, batch)
+        count = WholeCount(fsdp)
+        try:
+            state, metrics = make_lm_train_step(mesh, cfg=cfg)(state, batch)
+        finally:
+            count.close()
+        result["whole_peak"], result["gathers"] = count.peak, count.gathers
         paths = [p for p, _ in flatten(state.params)]
         result["loss"] = float(metrics["loss"])
         result["grads"] = _whole_grads(mesh, tx, paths,
@@ -358,6 +405,267 @@ def case_resnet(spec, variables, images, labels, meshless=False):
         result["meshless"] = record(plain, m, dict(zip(paths, (
             _np(g) for g in plain.tx.grads))))
     return result
+
+
+# ------------------------------------------------- checkpoints on a mesh
+
+
+def _lm_on(mesh, cfg, seed):
+    """The LM's train state from ``seed`` on ``mesh`` (None: meshless,
+    on the CPU)."""
+    from kubeflow_tpu_torch.models import LMConfig, build_lm, create_lm_state
+
+    return create_lm_state(build_lm(LMConfig(**cfg), mesh), seed=seed,
+                           mesh=mesh, device="cpu")
+
+
+def _state_np(state) -> dict:
+    """Every array field of a state, whole, as numpy by keystr (bf16
+    widened exactly): gathered first when the state is on a mesh."""
+    import torch
+
+    from kubeflow_tpu_torch.models import checkpoint as ckpt
+    from kubeflow_tpu_torch.models import gather_state
+
+    whole = state if state.mesh is None else gather_state(state)
+    out = {}
+    for key, leaf in ckpt._flatten_keys(ckpt._arrays_only(whole)):
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.detach().float().numpy().copy()
+        out[key] = np.asarray(leaf)
+    return out
+
+
+def _sharded(state) -> int:
+    """Leaves that really shard on the state's mesh (an axis of size > 1
+    in their placement), parameters and moments alike."""
+    mesh = state.mesh
+    return sum(1 for group in state.placements.values()
+               for placement in group.values()
+               if any(a is not None and mesh.size(a) > 1 for a in placement))
+
+
+def _manager(directory, mesh, **kw):
+    from kubeflow_tpu_torch.models.checkpoint import CheckpointManager
+    from kubeflow_tpu_torch.parallel import AXES
+
+    return CheckpointManager(directory, process_id=mesh.rank,
+                             process_count=mesh.size(AXES),
+                             fingerprint={"mesh": list(mesh.spec.shape)},
+                             **kw)
+
+
+def case_ckpt_save(root, dirs, spec, cfg, tokens):
+    """One LM step on a mesh of the world, then one save of step 10 into
+    each of ``dirs`` (a directory per restore that follows, so each has
+    its own agreement keys): the whole state, the bytes this rank wrote,
+    one copy's bytes, and how many leaves shard."""
+    import torch
+
+    from kubeflow_tpu_torch.models import LMConfig, make_lm_train_step
+
+    mesh = _mesh(spec)
+    state = _lm_on(mesh, cfg, 0)
+    state, _ = make_lm_train_step(mesh, cfg=LMConfig(**cfg))(
+        state, {"tokens": torch.from_numpy(tokens)})
+    for name in dirs:
+        _manager(os.path.join(root, name), mesh).save(10, state)
+    whole = _state_np(state)
+    wrote = {name: os.path.getsize(os.path.join(
+        root, name, "10", f"shard-{mesh.rank:05d}.bin")) for name in dirs}
+    # One copy of the state: mu is bf16, 2 bytes an element.
+    itemsize = {key: (2 if key.startswith("['opt_state'][0].mu") else
+                      whole[key].dtype.itemsize) for key in whole}
+    return {"state": whole, "wrote": wrote, "sharded": _sharded(state),
+            "copy_bytes": sum(whole[k].size * itemsize[k] for k in whole)}
+
+
+def case_ckpt_restore(directory, spec, cfg, ranks=None, tokens=None):
+    """Restore ``directory``'s newest step onto a mesh of ``ranks`` (all:
+    the world) through the manager, into a template from another seed:
+    the whole state, the outcome, and with ``tokens`` one step on."""
+    import torch
+
+    from kubeflow_tpu_torch.models import LMConfig, make_lm_train_step
+    from kubeflow_tpu_torch.models.checkpoint import CheckpointMetrics
+    from kubeflow_tpu_torch.parallel import MeshSpec, make_mesh
+
+    mesh = make_mesh(MeshSpec(**spec), device="cpu", ranks=ranks)
+    if mesh is None:
+        return {"member": False}
+    metrics = CheckpointMetrics()
+    manager = _manager(directory, mesh, metrics=metrics)
+    like = _lm_on(mesh, cfg, 1)
+    restored, step = manager.restore_latest_valid(like)
+    out = {"member": True, "step": step, "state": _state_np(restored),
+           "restore_total": dict(metrics.restore_total),
+           "last_restore": manager.last_restore,
+           "sharded": _sharded(restored),
+           "shapes_kept": all(
+               tuple(a.shape) == tuple(b.shape) for (_, a), (_, b) in zip(
+                   _flat_state(restored), _flat_state(like)))}
+    if tokens is not None:
+        restored, metrics = make_lm_train_step(mesh, cfg=LMConfig(**cfg))(
+            restored, {"tokens": torch.from_numpy(tokens)})
+        out.update(step_after=restored.step, loss=float(metrics["loss"]))
+    return out
+
+
+def _flat_state(state):
+    from kubeflow_tpu_torch.models import checkpoint as ckpt
+
+    return ckpt._flatten_keys(ckpt._arrays_only(state))
+
+
+def case_ckpt_refuse(directory, spec, cfg):
+    """A template of another width on the mesh: the restore refuses it."""
+    from kubeflow_tpu_torch.models.checkpoint import CheckpointManager
+
+    mesh = _mesh(spec)
+    wrong = _lm_on(mesh, {**cfg, "dim": 2 * cfg["dim"]}, 1)
+    try:
+        CheckpointManager(directory).restore(10, wrong)
+    except ValueError as exc:
+        return {"raised": "ValueError", "message": str(exc)}
+    return {"raised": None}
+
+
+def case_ckpt_whole_and_onto(directory, spec, cfg, tokens):
+    """``restore_checkpoint`` of a mesh checkpoint into a whole template
+    (every leaf whole on every rank), and onto a mesh of another shape
+    from that whole template, ``tp_rules`` left out (the LM's layout
+    comes from its model; other rules are refused). Then one step on the
+    mesh from that restore against the meshless step from the whole one,
+    and ``run_with_checkpointing(mesh=)`` from a whole template (no
+    ``tp_rules`` either) resuming the same step and taking it."""
+    import torch
+
+    from kubeflow_tpu_torch.models import LMConfig, make_lm_train_step
+    from kubeflow_tpu_torch.models.checkpoint import restore_checkpoint
+    from kubeflow_tpu_torch.models.train import run_with_checkpointing
+
+    whole = restore_checkpoint(directory, _lm_on(None, cfg, 1))
+    mesh = _mesh(spec)
+    onto = restore_checkpoint(directory, _lm_on(None, cfg, 2), mesh=mesh)
+    out = {"whole": _state_np(whole), "onto": _state_np(onto),
+           "onto_mesh": onto.mesh is mesh, "sharded": _sharded(onto),
+           "q_proj": onto.placements["params"]["block_0/q_proj/kernel"],
+           "apply_fn_mesh": onto.apply_fn.mesh is mesh}
+    try:
+        restore_checkpoint(directory, _lm_on(None, cfg, 2), mesh=mesh,
+                           tp_rules={})
+        out["other_rules"] = None
+    except ValueError:
+        out["other_rules"] = "ValueError"
+    batch = {"tokens": torch.from_numpy(tokens)}
+    step = make_lm_train_step(mesh, cfg=LMConfig(**cfg))
+    onto, metrics = step(onto, batch)
+    _, plain = make_lm_train_step(None, cfg=LMConfig(**cfg))(whole, batch)
+    looped, report = run_with_checkpointing(
+        step, _lm_on(None, cfg, 3), [batch], _manager(directory, mesh),
+        mesh=mesh, install_signal_handler=False)
+    out.update(loss=float(metrics["loss"]), plain_loss=float(plain["loss"]),
+               stepped=_state_np(onto), looped=_state_np(looped),
+               report=vars(report))
+    return out
+
+
+def case_ckpt_two_process(directory):
+    """The reference's two-process restore on ranks 0 and 1: saved under
+    a pure-dp layout, restored under an fsdp re-layout, each rank
+    reading only its new region."""
+    import torch
+
+    from kubeflow_tpu_torch.models.checkpoint import CheckpointMetrics
+    from kubeflow_tpu_torch.parallel import MeshSpec, Sharding, make_mesh
+
+    mesh_a = make_mesh(MeshSpec(dp=-1), device="cpu", ranks=[0, 1])
+    mesh_b = make_mesh(MeshSpec(dp=1, fsdp=2), device="cpu", ranks=[0, 1])
+    if mesh_a is None:
+        return {"member": False}
+    values = np.arange(2 * 4 * 8, dtype=np.float32).reshape(-1, 8)
+    put = Sharding(mesh_a, ("dp", None))
+    rows = slice(*put.region(values.shape)[0])
+    state = {"w": torch.from_numpy(values[rows]),
+             "m": torch.from_numpy(values[rows] * 0.5), "step": np.int32(5)}
+    _manager(directory, mesh_a).save(5, state, placements={
+        "w": put, "m": put, "step": Sharding(mesh_a, ())})
+    metrics = CheckpointMetrics()
+    manager = _manager(directory, mesh_b, metrics=metrics)
+    like = {"w": np.zeros_like(values), "m": np.zeros_like(values),
+            "step": np.int32(0)}
+    get = Sharding(mesh_b, (None, "fsdp"))
+    restored, step = manager.restore_latest_valid(like, {
+        "w": get, "m": get, "step": Sharding(mesh_b, ())})
+    return {"member": True, "step": step, "region": get.region(values.shape),
+            "w": np.asarray(restored["w"]), "m": np.asarray(restored["m"]),
+            "restored_step": int(restored["step"]),
+            "cross": manager.last_restore["cross_topology"],
+            "restore_total": dict(metrics.restore_total)}
+
+
+def case_ckpt_loop(root, spec, cfg, batches, ranks=None, seed=0):
+    """``run_with_checkpointing(mesh=)`` on a mesh of ``ranks`` over
+    ``batches`` (token arrays), saving every 2 steps under ``root``."""
+    import torch
+
+    from kubeflow_tpu_torch.models import LMConfig, make_lm_train_step
+    from kubeflow_tpu_torch.models.train import run_with_checkpointing
+    from kubeflow_tpu_torch.parallel import MeshSpec, make_mesh
+
+    mesh = make_mesh(MeshSpec(**spec), device="cpu", ranks=ranks)
+    if mesh is None:
+        return {"member": False}
+    manager = _manager(root, mesh)
+    state, report = run_with_checkpointing(
+        make_lm_train_step(mesh, cfg=LMConfig(**cfg)), _lm_on(mesh, cfg, seed),
+        [{"tokens": torch.from_numpy(t)} for t in batches], manager,
+        save_every_steps=2, mesh=mesh, install_signal_handler=False)
+    return {"member": True, "report": vars(report),
+            "latest": manager.latest_committed_step(),
+            "fingerprint": manager.step_fingerprint(
+                manager.latest_committed_step())}
+
+
+def case_ckpt_sigterm(root, spec, cfg, batches, stop_after):
+    """The loop on a mesh of the world, preempted: process 0 takes a
+    SIGTERM after ``stop_after`` steps, every rank stops at the agreed
+    boundary and saves; a fresh template resumes there over the rest of
+    the batches. Returns both runs' reports and the resumed state and an
+    uninterrupted run's, whole."""
+    import signal
+
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import LMConfig, make_lm_train_step
+    from kubeflow_tpu_torch.models.train import (
+        realign_batches,
+        run_with_checkpointing,
+    )
+
+    mesh = _mesh(spec)
+    step = make_lm_train_step(mesh, cfg=LMConfig(**cfg))
+    data = [{"tokens": torch.from_numpy(t)} for t in batches]
+    straight = _lm_on(mesh, cfg, 0)
+    for batch in data:
+        straight, _ = step(straight, batch)
+
+    def preempting(state, batch):
+        state, metrics = step(state, batch)
+        if dist.get_rank() == 0 and state.step == stop_after:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return state, metrics
+
+    _, first = run_with_checkpointing(preempting, _lm_on(mesh, cfg, 0),
+                                      data, _manager(root, mesh),
+                                      mesh=mesh)
+    resumed, second = run_with_checkpointing(
+        step, _lm_on(mesh, cfg, 5),
+        realign_batches(data, first.final_step), _manager(root, mesh),
+        mesh=mesh)
+    return {"first": vars(first), "second": vars(second),
+            "resumed": _state_np(resumed), "straight": _state_np(straight)}
 
 
 CASES = {name[len("case_"):]: fn for name, fn in list(globals().items())
