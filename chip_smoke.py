@@ -197,6 +197,23 @@ Phases (a failed phase raises; nothing is caught):
    1e-5 (whether bit-equal is printed), 8 launches of each flash kernel
    in the mesh step; 3 timed steps of each. Printed: a mesh save's
    blocking ms and seconds, the restores' seconds, step ms.
+16. pipeline (on the same world of one, before it ends; one card is one
+   NCCL rank, so pp = 1): the train config's LM at full width and depth
+   through ``make_pp_lm_train_step`` with batch 4 x 2048 as M = 4
+   microbatches of 1 x 2048, on each schedule: gpipe, gpipe with remat,
+   1f1b, interleaved with 2 virtual stages, 1f1b with 2 virtual stages,
+   each from ``create_pp_lm_state`` with seed 0 (the meshless LM's
+   weights, stacked). Gates: the step-0 loss within TRAIN_LOSS_TOL and
+   every leaf's gradient within TRAIN_GRAD_TOL (relative norm) of the
+   meshless ``make_lm_train_step`` on the same weights and batch; the
+   losses falling over 3 steps; the flash kernels' launches a step as
+   reckoned (PIPELINE_SCHEDULES: the forward L x M = 32, plus 32 for the
+   backward's recompute under remat and 1F1B, plus the forward units of
+   every chunk but the last under interleaved 1F1B; dq and dk/dv 32).
+   Then the engines alone on a toy stage (8 tanh layers at dim 1024,
+   M = 16 microbatches of 2048 rows): 1F1B's step peak above what was
+   allocated before must be below gpipe's. Printed: step ms of each
+   schedule against the meshless step, and each step's peak memory.
 
 Output: one JSON line per phase, the ``{"kernels": [...]}`` summary,
 the card's name and power limit, and last
@@ -3368,11 +3385,170 @@ def mesh_ckpt_phase(torch, mesh, root) -> dict:
             "launches": launches}
 
 
+# pipeline phase: the schedules PipelinedLM runs at pp = 1, as
+# (name, PipelinedLM keywords, flash forwards a step beyond the primal's
+# layers x M): remat and 1F1B recompute every block's forward in the
+# backward (+ layers x M), and interleaved 1F1B also runs the forward
+# units of chunk 0 to feed chunk 1 (+ layers / 2 x M).
+PIPELINE_M = 4
+PIPELINE_STEPS = 3
+PIPELINE_SCHEDULES = (
+    ("gpipe", {}, 0),
+    ("gpipe_remat", {"remat": True}, 32),
+    ("1f1b", {"schedule": "1f1b"}, 32),
+    ("interleaved_v2", {"schedule": "interleaved", "virtual_stages": 2}, 0),
+    ("1f1b_v2", {"schedule": "1f1b", "virtual_stages": 2}, 32 + 16),
+)
+# The engines' memory check: a toy stage of PIPELINE_TOY_LAYERS tanh
+# layers at dim 1024, PIPELINE_TOY_M microbatches of 2048 rows, f32.
+PIPELINE_TOY_LAYERS, PIPELINE_TOY_M, PIPELINE_TOY_ROWS = 8, 16, 2048
+
+
+def pipeline_toy_peaks(torch, mesh) -> dict:
+    """Step peak above what was allocated before, in bytes, of gpipe and
+    1F1B on a toy stage (8 tanh layers at dim 1024) at M = 16."""
+    from kubeflow_tpu_torch.parallel import gpipe, one_f_one_b, stage_stack
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    dim = 1024
+    w = torch.randn((PIPELINE_TOY_LAYERS, dim, dim), generator=gen,
+                    device="cuda") * dim ** -0.5
+    x = torch.randn((PIPELINE_TOY_M * PIPELINE_TOY_ROWS, dim), generator=gen,
+                    device="cuda")
+
+    def stage(p, h):
+        for i in range(p.shape[0]):
+            h = torch.tanh(h @ p[i])
+        return h
+
+    peaks = {}
+    for name, engine in (("gpipe", gpipe), ("1f1b", one_f_one_b)):
+        block = stage_stack(w, 1).clone().requires_grad_(True)
+        run = engine(stage, mesh, num_microbatches=PIPELINE_TOY_M)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = run(block, x)
+        grad, = torch.autograd.grad((y.float() ** 2).mean(), [block])
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        del block, y, grad
+        torch.cuda.empty_cache()
+    return peaks
+
+
+def pipeline_phase(torch, mesh) -> dict:
+    """The pipelined LM at pp = 1 on each of PIPELINE_SCHEDULES against
+    the meshless step (module docstring, phase 16)."""
+    from kubeflow_tpu_torch.models import (
+        PipelinedLM,
+        create_pp_lm_state,
+        make_lm_train_step,
+        make_pp_lm_train_step,
+    )
+    from kubeflow_tpu_torch.models.optim import flatten, tree_map_with_path
+    from kubeflow_tpu_torch.models.pipeline_lm import stack_blocks
+    from kubeflow_tpu_torch.ops import _build
+
+    cfg, state, tokens = train_setup(torch)
+    batch = {"tokens": tokens}
+    state.tx = RecordingAdamW(torch)
+    state.opt_state = state.tx.init(state.params)
+    plain_step = make_lm_train_step(cfg=cfg)
+    state, plain = plain_step(state, batch)
+    plain_loss = float(plain["loss"])
+    grads = dict(zip([path for path, _ in flatten(state.params)],
+                     state.tx.grads))
+    want = dict(flatten(stack_blocks(cfg, tree_map_with_path(
+        lambda path, _: grads[path], state.params))))
+    plain_ms = []
+    state.tx = state.tx.inner
+    for _ in range(PIPELINE_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = plain_step(state, batch)
+        float(metrics["loss"])
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    del state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    runs, totals = {}, {}
+    per_microbatch = cfg.layers * PIPELINE_M
+    for name, kw, recompute in PIPELINE_SCHEDULES:
+        model = PipelinedLM(cfg, mesh, num_microbatches=PIPELINE_M, **kw)
+        tx = RecordingAdamW(torch)
+        pstate = create_pp_lm_state(model, seed=0, tx=tx)
+        step = make_pp_lm_train_step(model)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        losses, ms = [], []
+        for i in range(PIPELINE_STEPS):
+            t0 = time.perf_counter()
+            pstate, metrics = step(pstate, batch)
+            losses.append(float(metrics["loss"]))   # syncs the step
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                step0 = dict(_build.LAUNCHES)
+                got = dict(zip([p for p, _ in flatten(pstate.params)],
+                               tx.grads))
+                pstate.tx = tx.inner   # no host copies in the timed steps
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - base
+        errs = {path: float((got[path] - want[path]).norm()
+                            / want[path].norm()) for path in want}
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        if not abs(losses[0] - plain_loss) <= TRAIN_LOSS_TOL:
+            _fail(f"pipeline {name}: step-0 loss {losses[0]} vs meshless "
+                  f"{plain_loss} (limit {TRAIN_LOSS_TOL})")
+        if not worst[1] <= TRAIN_GRAD_TOL:
+            _fail(f"pipeline {name}: step-0 gradient of {worst[0]} is "
+                  f"{worst[1]} from the meshless step's in relative norm "
+                  f"(limit {TRAIN_GRAD_TOL})")
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            _fail(f"pipeline {name}: the loss did not fall: {losses}")
+        reckoned = {"flash_attention": per_microbatch + recompute,
+                    "flash_dq": per_microbatch, "flash_dkv": per_microbatch}
+        for kernel, n in reckoned.items():
+            if step0.get(kernel, 0) != n or launches.get(
+                    kernel, 0) != n * PIPELINE_STEPS:
+                _fail(f"pipeline {name}: {kernel} launched "
+                      f"{step0.get(kernel, 0)} times in step 0 and "
+                      f"{launches.get(kernel, 0)} in {PIPELINE_STEPS} "
+                      f"steps, not {n} a step")
+        for kernel in dict.fromkeys(SERVE_KERNELS + TRAIN_KERNELS):
+            totals[kernel] = totals.get(kernel, 0) + launches.get(kernel, 0)
+        runs[name] = {"losses": losses, "step_ms": ms,
+                      "step_ms_after_first": statistics.median(ms[1:]),
+                      "loss_abs_err": abs(losses[0] - plain_loss),
+                      "grad_rel_err_max": worst[1],
+                      "grad_rel_err_worst_leaf": worst[0],
+                      "launches_per_step": reckoned,
+                      "step_peak_bytes": peak}
+        del pstate, step, tx, got
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    peaks = pipeline_toy_peaks(torch, mesh)
+    if not peaks["1f1b"] < peaks["gpipe"]:
+        _fail(f"1F1B's toy step peak {peaks['1f1b']} bytes is not below "
+              f"gpipe's {peaks['gpipe']} at M={PIPELINE_TOY_M}")
+    return {"phase": "pipeline", "microbatches": PIPELINE_M,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "meshless": {"loss": plain_loss, "step_ms": plain_ms,
+                         "step_ms_after_first": statistics.median(
+                             plain_ms[1:])},
+            "schedules": runs, "toy_step_peak_bytes": peaks,
+            "launches": totals, "loss_tol": TRAIN_LOSS_TOL,
+            "grad_tol": TRAIN_GRAD_TOL}
+
+
 def parallel_phase(torch, timer, root) -> tuple:
     """The world from the platform env (a single replica: none), a mesh
     of one over the card, the LM and ResNet-50 steps on it against the
     meshless steps, the ring's hops at full width; then, on the same
-    world, the mesh_ckpt phase. Returns both phases' lines."""
+    world, the mesh_ckpt and pipeline phases. Returns the three phases'
+    lines."""
     import torch.distributed as dist
 
     from kubeflow_tpu_torch.parallel import (
@@ -3400,12 +3576,15 @@ def parallel_phase(torch, timer, root) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     mesh_ckpt = mesh_ckpt_phase(torch, mesh, root)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pipeline = pipeline_phase(torch, mesh)
     dist.destroy_process_group()
     launches = {name: lm["launches"].get(name, 0)
                 for name in SERVE_KERNELS + TRAIN_KERNELS}
     return ({"phase": "parallel", "world": world, "rtol": PARALLEL_RTOL,
              "lm": lm, "resnet": resnet, "ring": ring,
-             "launches": launches}, mesh_ckpt)
+             "launches": launches}, mesh_ckpt, pipeline)
 
 
 def main() -> int:
@@ -3488,11 +3667,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="mesh_ckpt_smoke_", dir=_build.BUILD_DIR)
     try:
-        parallel, mesh_ckpt = parallel_phase(torch, timer, root)
+        parallel, mesh_ckpt, pipeline = parallel_phase(torch, timer, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps(parallel), flush=True)
     print(json.dumps(mesh_ckpt), flush=True)
+    print(json.dumps(pipeline), flush=True)
     main_case = {"gemv": "tied_head", "qkv_rope": "flagship",
                  "decode_attention": "serve_shape",
                  "flash_attention": "causal", "flash_dq": "train_causal",
@@ -3510,7 +3690,9 @@ def main() -> int:
     # the speculative engine run's, ``moe_launches`` the moe phase's two
     # training runs' and its fallback engine run's, ``parallel_launches``
     # the parallel phase's mesh LM steps', ``mesh_ckpt_launches`` the
-    # mesh_ckpt phase's checkpointed mesh runs' and mesh MoE step's.
+    # mesh_ckpt phase's checkpointed mesh runs' and mesh MoE step's,
+    # ``pipeline_launches`` the pipeline phase's steps of its five
+    # schedules.
     launches = {**serve["launches"], "flash_dq": train["launches"]["flash_dq"],
                 "flash_dkv": train["launches"]["flash_dkv"]}
     meta = {
@@ -3547,7 +3729,8 @@ def main() -> int:
             "spec_serve_launches": spec_serve["launches"][name],
             "moe_launches": moe["launches"][name],
             "parallel_launches": parallel["launches"][name],
-            "mesh_ckpt_launches": mesh_ckpt["launches"][name]})
+            "mesh_ckpt_launches": mesh_ckpt["launches"][name],
+            "pipeline_launches": pipeline["launches"][name]})
     print(json.dumps({"kernels": summary}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

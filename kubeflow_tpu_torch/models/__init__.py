@@ -9,9 +9,8 @@ reference's on-disk format (``checkpoint``); the flax weight and
 train-state converter (``convert``); KV-cache decode with stacked params
 and rolling chunks (``decoding``), the continuous batcher with its
 speculative verify (``serving``) and self-speculative n-gram decoding
-(``speculative``). The LM and image steps train on dp/fsdp/tp/sp meshes
-(``parallel``); pipelining and expert parallelism belong to later
-slices."""
+(``speculative``). The LM and image steps train on dp/fsdp/tp/sp/ep
+meshes (``parallel``), and the pipelined LM over pp (``pipeline_lm``)."""
 
 from kubeflow_tpu_torch.models.convert import (
     gather_state,
@@ -34,6 +33,12 @@ from kubeflow_tpu_torch.models.optim import (
     AdamWState,
     NesterovSGD,
     make_optimizer,
+)
+from kubeflow_tpu_torch.models.pipeline_lm import (
+    PipelinedLM,
+    create_pp_lm_state,
+    make_pp_lm_train_step,
+    pp_param_sharding,
 )
 from kubeflow_tpu_torch.models.resnet import (
     ResNet,
@@ -116,4 +121,8 @@ __all__ = [
     "NGramProposer",
     "SpecStats",
     "speculative_generate",
+    "PipelinedLM",
+    "pp_param_sharding",
+    "create_pp_lm_state",
+    "make_pp_lm_train_step",
 ]

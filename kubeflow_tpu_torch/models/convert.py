@@ -15,7 +15,9 @@ what the GEMV and the fused QKV kernel contract, and the embedding
 stays (vocab, dim), which is what the tied head reads with
 ``transpose_w``. Matmul weights are cast to the compute
 dtype once here (the reference casts on every call, to the same
-values); norm scales stay f32.
+values); norm scales stay f32. The pipelined LM's layout
+(``models/pipeline_lm``: ``blocks`` leaves stacked over depth) carries
+across the same way, leaf by leaf.
 
 :func:`shard_state` lays a whole state (converted, or built without a
 mesh) onto a mesh, each rank keeping its shards, at the placements of
@@ -85,6 +87,12 @@ def params_from_jax(cfg: LMConfig, params_np: dict[str, Any], device=None,
             out[key] = {"embedding": _tensor(sub["embedding"], dev, dtype)}
         elif key == "final_norm":
             out[key] = {"scale": _tensor(sub["scale"], dev, torch.float32)}
+        elif key == "blocks":
+            # The pipelined layout: every leaf stacked over depth.
+            out[key] = {name: {leaf_name: _tensor(
+                value, dev, torch.float32 if name in _F32_LEAVES else dtype)
+                for leaf_name, value in leaf.items()}
+                for name, leaf in sub.items()}
         elif key.startswith("block_"):
             blk = {}
             for name, leaf in sub.items():
@@ -104,8 +112,8 @@ def params_from_jax(cfg: LMConfig, params_np: dict[str, Any], device=None,
             out[key] = blk
         else:
             raise ValueError(f"unexpected parameter group {key!r}")
-    missing = [f"block_{i}" for i in range(cfg.layers)
-               if f"block_{i}" not in out]
+    missing = [] if "blocks" in out else [
+        f"block_{i}" for i in range(cfg.layers) if f"block_{i}" not in out]
     if missing or "embed" not in out or "final_norm" not in out:
         raise ValueError(f"params do not match the config: missing "
                          f"{missing or ['embed/final_norm']}")
@@ -177,15 +185,27 @@ def mesh_form(state: TrainState, mesh, tp_rules: dict | None = None,
     on the mesh (``build_lm(cfg, mesh)``, unless ``apply_fn`` or the
     state's model is on it already) and its layout,
     ``transformer.LM_TP_RULES``, which its tp blocks compute with, so
-    ``tp_rules`` may be None or those rules and nothing else. Any other
-    state takes ``tp_rules`` as given and keeps its ``apply_fn`` (ResNet's
-    model takes its BatchNorm group per call)."""
+    ``tp_rules`` may be None or those rules and nothing else. The
+    pipelined LM's come from its model the same way: the model on
+    ``mesh`` and ``pipeline_lm.pp_param_sharding`` (blocks on pp). Any
+    other state takes ``tp_rules`` as given and keeps its ``apply_fn``
+    (ResNet's model takes its BatchNorm group per call)."""
+    from kubeflow_tpu_torch.models.pipeline_lm import (
+        PipelinedLM,
+        pp_state_shardings,
+    )
+
     apply_fn = apply_fn or state.apply_fn
+    if isinstance(apply_fn, (TransformerLM, PipelinedLM)) and (
+            tp_rules is not None and tp_rules != LM_TP_RULES):
+        raise ValueError("the LM's tp layout is LM_TP_RULES; a state "
+                         "placed by other rules would not match what "
+                         "its blocks compute")
+    if isinstance(apply_fn, PipelinedLM):
+        if apply_fn.mesh is not mesh:
+            apply_fn = dataclasses.replace(apply_fn, mesh=mesh)
+        return pp_state_shardings(state, mesh), apply_fn
     if isinstance(apply_fn, TransformerLM):
-        if tp_rules is not None and tp_rules != LM_TP_RULES:
-            raise ValueError("the LM's tp layout is LM_TP_RULES; a state "
-                             "placed by other rules would not match what "
-                             "its blocks compute")
         tp_rules = LM_TP_RULES
         if apply_fn.mesh is not mesh:
             apply_fn = build_lm(apply_fn.cfg, mesh=mesh)

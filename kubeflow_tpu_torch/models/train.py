@@ -17,8 +17,11 @@ On a mesh (``parallel.make_mesh``) each rank's state holds its shards,
 fsdp's gathers (``parallel.fsdp``), whose backward reduce-scatters, and
 :func:`reduce_gradients` after the backward. A checkpointed run on a
 mesh writes each rank's shards and resumes on another mesh
-(``models/checkpoint``). Pipelines (``pp``), step telemetry, goodput and
-the autopilot's cadence signal belong to later slices and raise here.
+(``models/checkpoint``). On a pp mesh these steps leave pp inert, as the
+reference's do: every pp rank holds the whole replica and steps the same
+rows (the pipelined LM is ``models/pipeline_lm``). Step telemetry,
+goodput and the autopilot's cadence signal belong to later slices and
+raise here.
 """
 
 from __future__ import annotations
@@ -75,14 +78,6 @@ class TrainState:
     batch_stats: dict[str, Any] = dataclasses.field(default_factory=dict)
     mesh: Any = None
     placements: dict[str, dict[str, tuple]] | None = None
-
-
-def refuse_unported_axes(mesh) -> None:
-    """Pipelines on a mesh are a later slice."""
-    if mesh.shape["pp"] > 1:
-        raise NotImplementedError(
-            "pipeline parallelism (pp > 1) belongs to a later slice of the "
-            "port (ROADMAP A10b)")
 
 
 def state_shardings(state, mesh, tp_rules: dict | None = None) -> dict:
@@ -153,7 +148,6 @@ def create_train_state(model, seed: int, input_shape: tuple[int, ...],
     device, at ``param_sharding`` with no tp rules, as the reference
     places them (``shard_state``)."""
     if mesh is not None:
-        refuse_unported_axes(mesh)
         device = "cpu"
     tx = tx or make_optimizer()
     variables = model.init_variables(seed, in_channels=input_shape[-1],
@@ -192,7 +186,6 @@ def make_train_step(mesh=None, smoothing: float = 0.1):
     whole batch's means."""
     group = None
     if mesh is not None:
-        refuse_unported_axes(mesh)
         group = mesh.group(IMAGE_DATA_AXES)
 
     def step(state, batch):

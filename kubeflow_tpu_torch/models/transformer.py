@@ -32,7 +32,6 @@ from kubeflow_tpu_torch.models.train import (
     TrainState,
     gradient_axes,
     reduce_gradients,
-    refuse_unported_axes,
 )
 from kubeflow_tpu_torch.ops.attention import (
     _attend,
@@ -688,9 +687,9 @@ def check_tp_layout(cfg: LMConfig, mesh) -> None:
         )
 
 
-def build_lm(cfg: LMConfig, mesh=None,
-             use_flash: bool | None = None) -> TransformerLM:
-    """Pick the attention core: ring attention over the mesh's ``sp``
+def attention_core(cfg: LMConfig, mesh=None,
+                   use_flash: bool | None = None) -> AttnImpl:
+    """The LM's attention core: ring attention over the mesh's ``sp``
     group when sp > 1 (:func:`ring_attention`); else the flash kernels
     (``use_flash=True``; their plain twins on CPU tensors),
     :func:`_plain_attention` (``use_flash=False``), or, by default, the
@@ -698,35 +697,43 @@ def build_lm(cfg: LMConfig, mesh=None,
     reference takes its kernel whenever it runs on the accelerator. On a
     CUDA tensor the kernels run or raise (a dtype or head dim they were
     not built for); nothing falls back. The config's window applies
-    either way. On a tp mesh the kernels see each rank's local heads."""
-    check_tp_layout(cfg, mesh)
+    either way."""
     window = cfg.attn_window
-    if mesh is not None:
-        refuse_unported_axes(mesh)
-        if mesh.shape["sp"] > 1:
-            group = mesh.group("sp")
+    if mesh is not None and mesh.shape["sp"] > 1:
+        group = mesh.group("sp")
 
-            def ring(q, k, v, causal=True, segment_ids=None):
-                return ring_attention(q, k, v, group=group, causal=causal,
-                                      window=window, segment_ids=segment_ids)
+        def ring(q, k, v, causal=True, segment_ids=None):
+            return ring_attention(q, k, v, group=group, causal=causal,
+                                  window=window, segment_ids=segment_ids)
 
-            return TransformerLM(cfg, attn_impl=ring, mesh=mesh)
+        return ring
+    plain = _plain_attention(window)
     if use_flash is False:
-        return TransformerLM(cfg, mesh=mesh)
+        return plain
 
     def flash(q, k, v, causal=True, segment_ids=None):
-        # TransformerLM checked the segment order once for the batch.
+        # The model checked the segment order once for the batch.
         return _attend(q, k, v, causal, window, segment_ids)
 
     if use_flash:
-        return TransformerLM(cfg, attn_impl=flash, mesh=mesh)
-    plain = _plain_attention(window)
+        return flash
 
     def auto(q, k, v, causal=True, segment_ids=None):
         return (flash if q.is_cuda else plain)(q, k, v, causal=causal,
                                                segment_ids=segment_ids)
 
-    return TransformerLM(cfg, attn_impl=auto, mesh=mesh)
+    return auto
+
+
+def build_lm(cfg: LMConfig, mesh=None,
+             use_flash: bool | None = None) -> TransformerLM:
+    """The LM with :func:`attention_core`'s core (the ring on an sp
+    mesh). On a tp mesh the kernels see each rank's local heads; on a pp
+    mesh pp is inert, as the reference's is outside its pipelined model:
+    every pp rank holds the whole replica and steps the same rows."""
+    check_tp_layout(cfg, mesh)
+    return TransformerLM(cfg, attn_impl=attention_core(cfg, mesh, use_flash),
+                         mesh=mesh)
 
 
 def lm_loss(logits, tokens=None, segment_ids=None, *, targets=None,
@@ -853,8 +860,6 @@ def make_lm_train_step(mesh=None, moe_aux_weight: float | None = None,
     loss_cfg = cfg or LMConfig()
     if moe_aux_weight is None:
         moe_aux_weight = loss_cfg.moe_aux_weight
-    if mesh is not None:
-        refuse_unported_axes(mesh)
 
     def step(state, batch):
         model = state.apply_fn
@@ -916,4 +921,5 @@ __all__ = ["LMConfig", "TransformerLM", "Block", "rms_norm", "tied_head",
            "gelu", "init_params", "param_count", "build_lm", "lm_loss",
            "create_lm_state", "make_lm_train_step", "AUTO_FUSED_MIN_SEQ",
            "is_moe_block", "moe_ffn", "moe_aux_total", "LM_TP_RULES",
-           "check_tp_layout", "lm_placements", "TensorParallel"]
+           "check_tp_layout", "lm_placements", "TensorParallel",
+           "attention_core"]

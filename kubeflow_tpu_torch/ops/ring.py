@@ -32,8 +32,9 @@ JAX's ``scan`` + ``ppermute`` transpose does; one tensor keeps the
 forward and the backward to one message per hop, in one order on every
 rank. Autograd runs only the nodes the loss reaches, and a rank whose
 last hops are dead would skip their reverse hops while its neighbours
-wait on it; :class:`_TieRing` ties the last rotation's output into the
-result, so every rank runs every reverse hop.
+wait on it; :class:`~kubeflow_tpu_torch.parallel.collectives.Tie` ties
+the last rotation's output into the result, so every rank runs every
+reverse hop.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import torch.distributed as dist
 from kubeflow_tpu_torch.ops.attention import NEG_INF, _causal_mask
 from kubeflow_tpu_torch.parallel.collectives import (
     Rotate,
+    Tie,
     all_gather_dim,
     shift,
 )
@@ -93,22 +95,6 @@ def hop_live(q_index: int, src: int, s_local: int, causal: bool,
         return any(q_lo <= k_hi and k_lo <= q_hi for q_lo, q_hi, k_lo, k_hi
                    in zip(*q_range, *k_range))
     return True
-
-
-class _TieRing(torch.autograd.Function):
-    """Identity on ``o`` whose backward also hands ``kv`` (the ring's
-    last rotation) a zero gradient: every rotation is then on the
-    backward's path on every rank, dead hops or not."""
-
-    @staticmethod
-    def forward(ctx, o, kv):
-        ctx.kv = (kv.shape, kv.dtype, kv.device)
-        return o.view_as(o)
-
-    @staticmethod
-    def backward(ctx, g):
-        shape, dtype, device = ctx.kv
-        return g, torch.zeros(shape, dtype=dtype, device=device)
 
 
 def _check(q, k, causal, window):
@@ -165,7 +151,7 @@ def ring_attention(q, k, v, *, group, causal: bool = False, scale=None,
             if segment_ids is not None:
                 seg_t = shift(seg_t, group)
     if n > 1 and kv.requires_grad and torch.is_grad_enabled():
-        o = _TieRing.apply(o, kv)
+        o = Tie.apply(o, kv)
     # Every row sees at least its own key (causal and packed rows
     # include the diagonal), so l > 0.
     return (o / l).reshape(b, h, s_local, d).to(q.dtype)

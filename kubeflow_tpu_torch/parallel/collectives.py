@@ -9,8 +9,15 @@ pairs (Megatron's f and g, gather and scatter, a rotation and its
 inverse): the backward of each is the forward of its partner.
 
 Every collective runs on the group it is given, a group of one included:
-on the card at world 1 the NCCL calls are real calls. The one exception
-is :func:`shift`, whose ring of one has no neighbour to talk to.
+on the card at world 1 the NCCL calls are real calls. The exceptions
+are the point-to-point hops (:func:`shift`, :func:`exchange`,
+:class:`Hop`): a ring of one has no neighbour to talk to, so its hop is
+the tensor itself and posts nothing.
+
+The pipeline's hops (:func:`exchange`, :class:`Hop`) take their edges
+from a static schedule that both ends of every edge read alike: a hop
+that carries nothing on a tick (a bubble's) posts no message on either
+end, and every other is one batched isend/irecv pair.
 """
 
 from __future__ import annotations
@@ -64,19 +71,80 @@ def own_block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 def shift(x: torch.Tensor, group, step: int = 1) -> torch.Tensor:
     """Send ``x`` to group rank ``(i + step) % n`` and receive from
     ``(i - step) % n`` (one batched isend/irecv pair, waited for)."""
-    n = group.size()
-    if n == 1:
-        return x
-    i = dist.get_rank(group)
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x,
-                      dist.get_global_rank(group, (i + step) % n), group),
-           dist.P2POp(dist.irecv, out,
-                      dist.get_global_rank(group, (i - step) % n), group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    n, i = group.size(), dist.get_rank(group)
+    return exchange(x, group, (i + step) % n, (i - step) % n)
+
+
+def exchange(x, group, dst=None, src=None, like=None):
+    """One point-to-point hop on ``group``: send ``x`` to group rank ``dst``
+    and receive from group rank ``src`` a tensor shaped and typed like
+    ``like`` (``x`` when None), in one batched isend/irecv, waited for.
+    Either end may be None (nothing sent, nothing received). Returns what
+    was received, or None. In a group of one the hop is ``x`` itself."""
+    if group.size() == 1:
+        return x if src is not None else None
+    like = x if like is None else like
+    ops, out = [], None
+    if dst is not None:
+        ops.append(dist.P2POp(dist.isend, x.contiguous(),
+                              dist.get_global_rank(group, dst), group))
+    if src is not None:
+        out = torch.empty(like.shape, dtype=like.dtype, device=like.device)
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(group, src), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
     return out
+
+
+class Hop(torch.autograd.Function):
+    """:func:`exchange` under autograd: ``x`` (or None) to ``dst``, and
+    the result from ``src`` (an empty tensor when nothing is received).
+    Its backward is the reverse hop: the result's gradient goes back to
+    ``src`` and ``x``'s comes from ``dst``.
+
+    ``anchor`` (a tensor that requires grad, or None) makes the node
+    exist where ``x`` is None or carries no gradient: a hop that only
+    receives must still send the gradient back. Autograd runs a node only
+    where the loss reaches it, so the pipeline ties every hop's result
+    into its output (``parallel.pipeline``): every rank then runs every
+    reverse hop, in the reverse of the forward's order."""
+
+    @staticmethod
+    def forward(ctx, x, anchor, like, group, dst, src):
+        ctx.group, ctx.dst, ctx.src = group, dst, src
+        ctx.like = (like.shape, like.dtype, like.device)
+        out = exchange(x, group, dst, src, like)
+        if out is None:
+            return like.new_empty((0,))
+        return out.view_as(out) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.like
+        like = torch.empty(shape, dtype=dtype, device=device)
+        if ctx.src is not None and g is None:
+            g = torch.zeros_like(like)
+        gx = exchange(g if ctx.src is not None else None, ctx.group,
+                      dst=ctx.src, src=ctx.dst, like=like)
+        return gx, None, None, None, None, None
+
+
+class Tie(torch.autograd.Function):
+    """Identity on ``y`` whose backward also hands each of ``tied`` a zero
+    gradient (an expanded zero: no memory), so that every node that made
+    them runs in the backward wherever ``y`` is reached."""
+
+    @staticmethod
+    def forward(ctx, y, *tied):
+        ctx.tied = [(t.shape, t.dtype, t.device) for t in tied]
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros((), dtype=dtype, device=device).expand(shape)
+                     for shape, dtype, device in ctx.tied))
 
 
 class Rotate(torch.autograd.Function):
@@ -135,6 +203,20 @@ class GatherFromGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return own_block(g, ctx.dim, ctx.group), None, None
+
+
+class ReduceScatterToGroup(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` forward (the sum over the group, this
+    rank's block of it); all-gather of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group), None, None
 
 
 class ScatterToGroup(torch.autograd.Function):

@@ -20,7 +20,7 @@ backward, where autograd's engine runs, of the nodes the loss reaches,
 always the one created last: the reverse of the forward's program order
 on every rank. Ranks whose ring skips different hops (their packed rows
 differ) build fewer product nodes but the same collective nodes
-(``ops/ring._TieRing``), so every group sees its collectives in one
+(the ring's ``collectives.Tie``), so every group sees its collectives in one
 order.
 """
 

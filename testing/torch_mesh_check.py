@@ -49,9 +49,23 @@ on the whole batch, from the same seed, and compares them:
   card one more step against the meshless step from the same restored
   state, within the f32 limits (held).
 
-Rank 0 prints one JSON line per spec, then the ``moe``, ``ckpt`` and
-``memory`` lines, and the card's name and power limit; the script exits
-1 if any held check fails.
+- Pipelines in f32 (the plain core, TF32 off): the LM at 8 layers
+  (``pp_config``) through ``make_pp_lm_train_step`` on each of PP_SPECS
+  (pp over every card, dp2 x pp2, pp2 x sp2, pp2 x tp2 at 4 cards),
+  M = 4 microbatches, with gpipe, 1f1b and 1f1b with 2 virtual stages,
+  each from ``create_pp_lm_state`` with seed 0 (the meshless LM's
+  weights, stacked) against the meshless step on each card: the LM's
+  f32 limits. Then a pp checkpoint: the f32 pipelined state stepped once
+  on pp over every card, saved, restored onto the same mesh and onto
+  one card (rank 0 alone), every leaf bit-equal (held). On the cards,
+  each rank's step peak above what was allocated before for gpipe and
+  1F1B at M = 4 and 16 on pp over every card (the train phase's LM,
+  batch 16 x 512), printed, not held.
+
+Rank 0 prints one JSON line per spec, then the ``moe``, ``ckpt``,
+``pp`` (one per pp spec), ``pp_ckpt``, ``memory`` and ``pp_memory``
+lines, and the card's name and power limit; the script exits 1 if any
+held check fails.
 
 Run from the root of a checkout on a host with 2 to 8 cards and nvcc:
 ``python3 testing/torch_mesh_check.py [cards]`` (default 4). With
@@ -95,6 +109,15 @@ MOE_SPECS = {4: [dict(dp=1, ep=4), dict(dp=1, sp=2, ep=2)],
 CKPT_TARGETS = {4: [dict(dp=2, tp=2), dict(dp=1, tp=4), dict(dp=1, sp=4)],
                 2: [dict(dp=1, tp=2), dict(dp=1, sp=2)]}
 MOE = dict(moe_experts=4, moe_top_k=2)
+# Pipeline specs per world size, the schedules each runs, and the
+# microbatch counts of the step-peak readings.
+PP_SPECS = {4: [dict(dp=1, pp=4), dict(dp=2, pp=2), dict(dp=1, pp=2, sp=2),
+                dict(dp=1, pp=2, tp=2)],
+            2: [dict(dp=1, pp=2)]}
+PP_SCHEDULES = {"gpipe": {}, "1f1b": {"schedule": "1f1b"},
+                "1f1b_v2": {"schedule": "1f1b", "virtual_stages": 2}}
+PP_MICROBATCHES = 4
+PP_MEMORY_MICROBATCHES = (4, 16)
 
 
 def lm_config(torch, precision: str, cpu: bool, **extra):
@@ -346,6 +369,180 @@ def ckpt_check(torch, cpu: bool, root: str) -> dict:
     return out
 
 
+def pp_config(torch, cpu: bool):
+    """The f32 pipeline check's LM: ``lm_config``'s at 8 layers (pp x
+    virtual stages divide it), and its batch."""
+    from kubeflow_tpu_torch.models import LMConfig
+
+    if cpu:
+        return LMConfig(vocab=256, layers=8, dim=64, heads=4,
+                        dtype=torch.float32), (8, 64)
+    return LMConfig(vocab=8192, layers=8, dim=512, heads=4,
+                    dtype=torch.float32), (8, 1024)
+
+
+def pp_check(torch, mesh, cpu: bool) -> dict:
+    """The pipelined LM on ``mesh`` with each of PP_SCHEDULES against the
+    meshless step on this card, within the f32 limits."""
+    from kubeflow_tpu_torch.models import (
+        PipelinedLM,
+        build_lm,
+        create_lm_state,
+        create_pp_lm_state,
+        gather_state,
+        init_params,
+        make_lm_train_step,
+        make_pp_lm_train_step,
+    )
+    from kubeflow_tpu_torch.models.optim import flatten, tree_map_with_path
+    from kubeflow_tpu_torch.models.pipeline_lm import stack_blocks
+    from kubeflow_tpu_torch.parallel import gather_block
+
+    cfg, shape = pp_config(torch, cpu)
+    gen = torch.Generator(device=mesh.device).manual_seed(37)
+    tokens = torch.randint(0, cfg.vocab, shape, generator=gen,
+                           device=mesh.device)
+    batch = {"tokens": tokens}
+
+    def stacked(tree):
+        return dict(flatten(stack_blocks(cfg, tree)))
+
+    before = stacked(init_params(cfg, seed=0, device=mesh.device))
+    state = create_lm_state(build_lm(cfg, use_flash=False), seed=0,
+                            tx=f32_adamw(torch, "f32"), device=mesh.device)
+    tx = state.tx
+    state, metrics = make_lm_train_step(cfg=cfg)(state, batch)
+    by_path = dict(zip([p for p, _ in flatten(state.params)], tx.grads))
+    grads = stacked(tree_map_with_path(lambda p, _: by_path[p],
+                                       state.params))
+    meshless = (float(metrics["loss"]), grads, {
+        p: t.detach() - before[p] for p, t in stacked(state.params).items()})
+    out = {}
+    for name, kw in PP_SCHEDULES.items():
+        model = PipelinedLM(cfg, mesh, num_microbatches=PP_MICROBATCHES,
+                            use_flash=False, **kw)
+        pstate = create_pp_lm_state(model, seed=0,
+                                    tx=f32_adamw(torch, "f32"))
+        ptx = pstate.tx
+        pstate, pmetrics = make_pp_lm_train_step(model)(pstate, batch)
+        placements = pstate.placements["params"]
+        pgrads = {p: gather_block(mesh, g, placements[p]) for (p, _), g in
+                  zip(flatten(pstate.params), ptx.grads)}
+        after = dict(flatten(gather_state(pstate).params))
+        out[name] = compare({
+            "mesh": (float(pmetrics["loss"]), pgrads,
+                     {p: t.detach() - before[p] for p, t in after.items()}),
+            "meshless": meshless}, "f32")
+    return out
+
+
+def pp_ckpt_check(torch, cpu: bool, root: str) -> dict:
+    """The f32 pipelined state stepped once on pp over every card and
+    saved, then restored onto the same mesh and onto one card (rank 0
+    alone): every leaf bit-equal to the saved state."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import (
+        PipelinedLM,
+        create_pp_lm_state,
+        gather_state,
+        make_pp_lm_train_step,
+    )
+    from kubeflow_tpu_torch.models.checkpoint import (
+        CheckpointManager,
+        _arrays_only,
+        _flatten_keys,
+    )
+    from kubeflow_tpu_torch.parallel import AXES, MeshSpec, make_mesh
+
+    device = "cpu" if cpu else None
+    world = dist.get_world_size()
+    cfg, shape = pp_config(torch, cpu)
+    source = make_mesh(MeshSpec(dp=1, pp=world), device=device)
+    gen = torch.Generator(device=source.device).manual_seed(41)
+    tokens = torch.randint(0, cfg.vocab, shape, generator=gen,
+                           device=source.device)
+
+    def fresh(mesh, seed):
+        model = PipelinedLM(cfg, mesh, num_microbatches=PP_MICROBATCHES,
+                            use_flash=False)
+        return model, create_pp_lm_state(model, seed=seed,
+                                         tx=f32_adamw(torch, "f32"))
+
+    def manager(mesh):
+        return CheckpointManager(root, process_id=mesh.rank,
+                                 process_count=mesh.size(AXES),
+                                 fingerprint={"mesh": list(mesh.spec.shape)})
+
+    def equal(a, b) -> bool:
+        la = dict(_flatten_keys(_arrays_only(a)))
+        lb = dict(_flatten_keys(_arrays_only(b)))
+        return la.keys() == lb.keys() and all(
+            torch.equal(x, lb[k]) if isinstance(x, torch.Tensor)
+            else int(x) == int(lb[k]) for k, x in la.items())
+
+    model, state = fresh(source, 0)
+    state, _ = make_pp_lm_train_step(model)(state, {"tokens": tokens})
+    manager(source).save(1, state)
+    saved = gather_state(state)
+    out, ok = {"source": source.shape, "targets": []}, True
+    for spec, ranks in ((dict(dp=1, pp=world), None), (dict(), [0])):
+        mesh = make_mesh(MeshSpec(**spec), device=device, ranks=ranks)
+        line = {"spec": spec or "one card"}
+        if mesh is not None:
+            restored, _ = manager(mesh).restore_latest_valid(
+                fresh(mesh, 1)[1])
+            line["bit_equal"] = equal(gather_state(restored), saved)
+            line["pp"] = restored.placements["params"][
+                "blocks/q_proj/kernel"][0]
+        every = [None] * world
+        dist.all_gather_object(every, line.get("bit_equal", True))
+        ok = ok and all(every)
+        out["targets"].append(line)
+    out["ok"] = ok
+    return out
+
+
+def pp_memory(torch, mesh) -> dict:
+    """Per rank, in MB: the step peak above what was allocated before
+    of the train phase's LM (batch 16 x 512) on ``mesh`` with gpipe and
+    1F1B at each of PP_MEMORY_MICROBATCHES."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import (
+        LMConfig,
+        PipelinedLM,
+        create_pp_lm_state,
+        make_pp_lm_train_step,
+    )
+
+    cfg = LMConfig(vocab=32768, layers=8, dim=1024, heads=8,
+                   dtype=torch.bfloat16)
+    gen = torch.Generator(device=mesh.device).manual_seed(43)
+    tokens = torch.randint(0, cfg.vocab, (16, 512), generator=gen,
+                           device=mesh.device)
+    out = {}
+    for m in PP_MEMORY_MICROBATCHES:
+        for name in ("gpipe", "1f1b"):
+            model = PipelinedLM(cfg, mesh, num_microbatches=m,
+                                **PP_SCHEDULES[name])
+            state = create_pp_lm_state(model, seed=0)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            state, metrics = make_pp_lm_train_step(model)(
+                state, {"tokens": tokens})
+            float(metrics["loss"])
+            peak = round((torch.cuda.max_memory_allocated() - base)
+                         * 2.0 ** -20, 1)
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, peak)
+            out[f"{name}_m{m}_step_peak_mb"] = every
+            del state, metrics
+            torch.cuda.empty_cache()
+    return out
+
+
 def moe_check(torch, mesh, cpu: bool) -> dict:
     """The MoE LM in f32 on ``mesh`` against the meshless step."""
     return lm_check(torch, mesh, "f32", cpu, **MOE)
@@ -441,6 +638,21 @@ def rank_main(cpu: bool) -> int:
         dist.barrier()
     ok = ok and line["ckpt"]["ok"]
     report(line)
+    for spec in PP_SPECS[world]:
+        line = {"pp": spec, "lm_f32": pp_check(
+            torch, make_mesh(MeshSpec(**spec), device=device), cpu)}
+        ok = ok and all(run["ok"] for run in line["lm_f32"].values())
+        report(line)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        root = [tmp]
+        dist.broadcast_object_list(root, src=0)
+        line = {"pp_ckpt": pp_ckpt_check(torch, cpu, root[0])}
+        dist.barrier()
+    ok = ok and line["pp_ckpt"]["ok"]
+    report(line)
+    if not cpu:
+        report({"pp_memory": pp_memory(
+            torch, make_mesh(MeshSpec(dp=1, pp=world), device=device))})
     if not cpu:
         dp = memory[json.dumps(dict(dp=world))]["mesh"]["step_peak_mb"]
         fsdp = memory[json.dumps(dict(dp=1, fsdp=world))]["mesh"][

@@ -424,15 +424,16 @@ def test_meshes_name_a10():
     """Image training on dp/fsdp/tp/sp meshes is ported (tests/
     test_torch_mesh_train.py), and on ep since A10c: an image model has
     no expert stacks, so ep replicates every leaf (rank 1 of an ep=2
-    mesh holds the whole state). Pipelines still raise, naming A10b."""
-    def mesh_shape(**axes):
-        shape = dict(dp=1, pp=1, fsdp=1, tp=1, sp=1, ep=1)
-        shape.update(axes)
-        return types.SimpleNamespace(shape=shape)
-
+    mesh holds the whole state). Since A10b pp is inert on the image
+    step, as the reference's (tests/test_torch_pipeline_ckpt.py runs it
+    on dp2 x pp2 x fsdp2): rank 1 of a pp=2 mesh holds the whole state
+    too."""
     model = resnet18(num_classes=4, width=8)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        make_train_step(mesh=mesh_shape(dp=2, pp=2))
+    pp = Mesh(MeshSpec(dp=1, pp=2).resolve(2), torch.device("cpu"), {}, 1)
+    on_pp = create_train_state(model, 0, (1, 32, 32, 3), mesh=pp,
+                               device="cpu")
+    assert all(placement == () for placement in
+               on_pp.placements["params"].values())
     mesh = Mesh(MeshSpec(dp=1, ep=2).resolve(2), torch.device("cpu"), {}, 1)
     state = create_train_state(model, 0, (1, 32, 32, 3), mesh=mesh,
                                device="cpu")

@@ -455,11 +455,16 @@ def test_unported_training_paths_raise():
     """Meshes train since the parallel slice (tests/
     test_torch_mesh_train.py), expert parallelism and MoE on a mesh
     since A10c (tests/test_torch_moe_mesh.py): an ep mesh's step builds
-    and an MoE config's expert stacks go on ep. Pipelines (pp) still
-    raise, naming A10b."""
+    and an MoE config's expert stacks go on ep. Since A10b a pp mesh
+    builds too: outside the pipelined model (tests/
+    test_torch_pipeline_*.py) pp is inert, no leaf placed on it. Only
+    the train-loop hooks (A11) still raise."""
     cfg = LMConfig(dtype=torch.float32, **SMALL)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        build_lm(cfg, mesh=_mesh_shape(dp=2, pp=2))
+    model = build_lm(cfg, mesh=_mesh_shape(dp=2, pp=2))
+    assert not any("pp" in placement
+                   for placement in model.placements.values())
+    assert callable(make_lm_train_step(mesh=_mesh_shape(dp=2, pp=2),
+                                       cfg=cfg))
     assert callable(make_lm_train_step(mesh=_mesh_shape(dp=2, ep=2),
                                        cfg=cfg))
     placements = lm_placements(LMConfig(moe_experts=2, **SMALL),

@@ -668,6 +668,322 @@ def case_ckpt_sigterm(root, spec, cfg, batches, stop_after):
             "resumed": _state_np(resumed), "straight": _state_np(straight)}
 
 
+# ------------------------------------------------------------- pipelines
+
+
+def _toy_stage(kind: str, mesh):
+    """The reference tests' toy stages: ``affine`` (h @ p + 1), ``tanh``
+    (tanh(h @ p)), ``chunk`` (tanh(h @ p_i) over a chunk's layers) and
+    ``sp_hop`` (``chunk`` plus half of the sp neighbour's h, a rotation
+    on the datapath)."""
+    import torch
+
+    from kubeflow_tpu_torch.parallel.collectives import Rotate
+
+    def chunk(p, h):
+        for i in range(p.shape[0]):
+            h = torch.tanh(h @ p[i])
+        return h
+
+    def sp_hop(p, h):
+        for i in range(p.shape[0]):
+            h = torch.tanh(h @ p[i] + 0.5 * Rotate.apply(h, mesh.group("sp")))
+        return h
+
+    return {"affine": lambda p, h: h @ p + 1.0,
+            "tanh": lambda p, h: torch.tanh(h @ p),
+            "chunk": chunk, "sp_hop": sp_hop}[kind]
+
+
+def _stage_block(mesh, w, layout: str, virtual: int = 1):
+    """This rank's (1, ...) block of the whole stack ``w`` (numpy) in the
+    engine's layout: ``plain`` (w is (P, ...) already), ``stack``
+    (stage_stack) or ``interleaved`` (stage_stack_interleaved)."""
+    import torch
+
+    from kubeflow_tpu_torch.parallel import (
+        stage_stack,
+        stage_stack_interleaved,
+    )
+
+    whole = torch.from_numpy(np.array(w))
+    p, d = mesh.shape["pp"], mesh.index("pp")
+    if layout == "stack":
+        whole = stage_stack(whole, p)
+    elif layout == "interleaved":
+        whole = stage_stack_interleaved(whole, p, virtual)
+    return whole[d:d + 1].clone()
+
+
+class AllocatorPeak:
+    """The CPU allocator's high-water mark over a region, in bytes above
+    what it held when the region began: every storage made and freed in
+    it, whoever holds it (autograd's saved tensors, a schedule's own
+    buffers, the results), from the profiler's allocation events."""
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self._prof = profile(activities=[ProfilerActivity.CPU],
+                             profile_memory=True)
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._prof.__exit__(*exc)
+        events, stack = [], list(
+            self._prof.profiler.kineto_results.experimental_event_tree())
+        while stack:
+            event = stack.pop()
+            stack.extend(event.children)
+            if hasattr(event.extra_fields, "alloc_size"):
+                events.append((event.start_time_ns,
+                               event.extra_fields.alloc_size))
+        level = self.peak = 0
+        for _, size in sorted(events):
+            level += size
+            self.peak = max(self.peak, level)
+
+
+def case_pp_engine(spec, engine, stage, w, x, num_microbatches,
+                   layout="plain", virtual=1, output="replicated",
+                   grad=False, sp_rows=False, sum_sp=False, remat=False):
+    """One toy pipeline (``engine``: a ``parallel`` engine's name) on a
+    mesh of ``spec``: this rank's output (its microbatch shard with
+    sharded output) and, with ``grad``, the gradients of sum(y^2) (the
+    ranks' losses add up to the whole output's) for its stage block and
+    for x. ``sp_rows``: this rank holds its sp block of every
+    microbatch's rows (the reference's activation_spec P(None, "sp")),
+    else all of x. ``sum_sp``: the stage gradient summed over sp, the
+    caller's data-axis reduction."""
+    import torch
+
+    from kubeflow_tpu_torch import parallel
+    from kubeflow_tpu_torch.parallel.collectives import all_reduce
+
+    mesh = _mesh(spec)
+    kw = dict(num_microbatches=num_microbatches, output=output)
+    if engine.startswith("interleaved"):
+        kw["virtual_stages"] = virtual
+    if remat:
+        kw["remat"] = True
+    run = getattr(parallel, engine)(_toy_stage(stage, mesh), mesh, **kw)
+    block = _stage_block(mesh, w, layout, virtual).requires_grad_(grad)
+    xs = np.asarray(x)
+    if sp_rows:
+        xm = xs.reshape(num_microbatches, -1, *xs.shape[1:])
+        part = xm.shape[1] // mesh.size("sp")
+        j = mesh.index("sp")
+        xs = xm[:, j * part:(j + 1) * part].reshape(-1, *xs.shape[1:])
+    x_t = torch.from_numpy(np.array(xs)).requires_grad_(grad)
+    y = run(block, x_t)
+    out = {"y": _np(y), "pp": mesh.index("pp"), "sp": mesh.index("sp"),
+           "rows": y.shape[0]}
+    if grad:
+        g_block, g_x = torch.autograd.grad((y ** 2).sum(), [block, x_t])
+        if sum_sp:
+            g_block = all_reduce(g_block.clone(), mesh.group("sp"))
+        out.update(g_block=_np(g_block[0]), g_x=_np(g_x))
+    return out
+
+
+def case_pp_saved(spec, w, rows, counts):
+    """Temporary bytes of one interleaved pipeline step (V=2, the
+    ``chunk`` stage, forward and backward) of ``rows`` rows a
+    microbatch, per engine and microbatch count (``counts`` = [(engine,
+    M), ...]): the step's allocator high-water mark above its arguments,
+    less its results (the output and the gradients of the stage block
+    and of x), as compiled temp bytes count."""
+    import torch
+
+    from kubeflow_tpu_torch import parallel
+
+    mesh = _mesh(spec)
+    out = {}
+    for engine, m in counts:
+        run = getattr(parallel, engine)(_toy_stage("chunk", mesh), mesh,
+                                        num_microbatches=m, virtual_stages=2)
+        block = _stage_block(mesh, w, "interleaved", 2).requires_grad_(True)
+        x = torch.zeros((m * rows, np.asarray(w).shape[-1]),
+                        requires_grad=True)
+        cot = torch.ones_like(x)
+        with AllocatorPeak() as step:
+            y = run(block, x)
+            grads = torch.autograd.grad(y, [block, x], cot)
+            results = sum(t.untyped_storage().nbytes() for t in (y, *grads))
+            del y, grads
+        out[f"{engine}:{m}"] = step.peak - results
+    return out
+
+
+def _pp_model(mesh, cfg, model):
+    from kubeflow_tpu_torch.models import LMConfig, PipelinedLM
+
+    return PipelinedLM(LMConfig(**cfg), mesh, use_flash=False, **model)
+
+
+def _pp_state(mesh, cfg, model, params, tx):
+    """The pipelined model's state on ``mesh`` from the reference's
+    whole parameters (numpy), each rank keeping its shards."""
+    import torch
+
+    from kubeflow_tpu_torch.models import (
+        LMConfig,
+        TrainState,
+        params_from_jax,
+        shard_state,
+    )
+    from kubeflow_tpu_torch.models.optim import trainable
+
+    pmodel = _pp_model(mesh, cfg, model)
+    whole = trainable(params_from_jax(LMConfig(**cfg), params, device="cpu",
+                                      dtype=torch.float32))
+    return pmodel, shard_state(TrainState(
+        step=0, params=whole, opt_state=tx.init(whole), tx=tx,
+        apply_fn=pmodel), mesh)
+
+
+def case_pp_lm(spec, cfg, model, params, tokens, segment_ids=None,
+               forward=True, steps=1, adamw=None, sequential=False,
+               unpacked=False, window_off=False):
+    """The pipelined LM (``model``: PipelinedLM's keywords) on a mesh of
+    ``spec`` from the reference's parameters: this rank's shards and
+    their placements; with ``forward`` its output at its rows (global
+    row and column ranges) — with ``unpacked`` also without the segment
+    ids, with ``window_off`` also of the config without its window, on
+    the same parameters — and with ``sequential`` (rank 0) the port's
+    ``sequential_apply`` on the whole batch; then ``steps`` train steps
+    on the whole batch: their losses, and after the first the whole
+    gradients and parameters. ``adamw``: AdamW's ``lr`` and ``eps`` with
+    f32 moments, else the reference LM's."""
+    import torch
+
+    from kubeflow_tpu_torch.models import (
+        AdamW,
+        gather_state,
+        make_pp_lm_train_step,
+    )
+    from kubeflow_tpu_torch.models.optim import flatten
+
+    mesh = _mesh(spec)
+    tx = Recording(AdamW(3e-4, weight_decay=0.01, mu_dtype=torch.bfloat16)
+                   if adamw is None else AdamW(weight_decay=0.01, **adamw))
+    pmodel, state = _pp_state(mesh, cfg, model, params, tx)
+    result = {"rank": mesh.rank, "coords": mesh.coords,
+              "shards": {p: _np(t) for p, t in flatten(state.params)},
+              "placements": dict(state.placements["params"])}
+    tok = torch.from_numpy(np.asarray(tokens))
+    seg = None if segment_ids is None else torch.from_numpy(
+        np.asarray(segment_ids))
+    if forward:
+        rows = mesh.slice(("dp", "fsdp"), tok.shape[0])
+        cols = mesh.slice("sp", tok.shape[1])
+        out = pmodel.output_rows(rows.stop - rows.start)
+        local_seg = None if seg is None else seg[rows]
+        with torch.no_grad():
+            result["logits"] = _np(pmodel(state.params, tok[rows],
+                                          local_seg))
+            if unpacked:
+                result["logits_unpacked"] = _np(pmodel(state.params,
+                                                       tok[rows]))
+            if window_off:
+                full = _pp_model(mesh, {**cfg, "attn_window": None}, model)
+                result["logits_full"] = _np(full(state.params, tok[rows],
+                                                 local_seg))
+        result["row_range"] = (rows.start + out.start, rows.start + out.stop)
+        result["col_range"] = (cols.start, cols.stop)
+        if sequential:
+            whole = gather_state(state).params   # a collective
+        if sequential and mesh.rank == 0:
+            with torch.no_grad():
+                result["sequential"] = _np(pmodel.sequential_apply(
+                    whole, tok, seg))
+    batch = {"tokens": tok}
+    if seg is not None:
+        batch["segment_ids"] = seg
+    step = make_pp_lm_train_step(pmodel)
+    losses = []
+    for i in range(steps):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            paths = [p for p, _ in flatten(state.params)]
+            result["grads"] = _whole_grads(mesh, tx, paths,
+                                           state.placements["params"])
+            result["params"] = _whole(gather_state(state).params)
+    result["losses"] = losses
+    return result
+
+
+def case_pp_born(spec, cfg, model, tokens, steps=2):
+    """``create_pp_lm_state`` on a mesh of ``spec``: each rank's shard
+    shapes and placements, and ``steps`` steps on one batch (losses, the
+    state's step)."""
+    import torch
+
+    from kubeflow_tpu_torch.models import (
+        create_pp_lm_state,
+        make_pp_lm_train_step,
+    )
+    from kubeflow_tpu_torch.models.optim import flatten
+
+    mesh = _mesh(spec)
+    pmodel = _pp_model(mesh, cfg, model)
+    state = create_pp_lm_state(pmodel, seed=1)
+    out = {"placements": dict(state.placements["params"]),
+           "shapes": {p: tuple(t.shape) for p, t in flatten(state.params)},
+           "apply_fn": type(state.apply_fn).__name__}
+    step = make_pp_lm_train_step(pmodel)
+    batch = {"tokens": torch.from_numpy(np.asarray(tokens))}
+    losses = []
+    for _ in range(steps):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    out.update(losses=losses, step=state.step)
+    return out
+
+
+def case_pp_ckpt(root, spec, cfg, model, tokens, jax_dir=None):
+    """TestPipelinedCheckpoint on a mesh of ``spec``: a pipelined state
+    from seed 0 stepped once and saved (each rank its first-replica
+    blocks) under ``root/port``, restored through ``restore_checkpoint``
+    into a template from seed 1 on the same mesh (the state whole, the
+    q_proj placement, one step on), and with ``jax_dir`` the reference's
+    pipelined checkpoint restored onto this mesh (whole)."""
+    import torch
+
+    from kubeflow_tpu_torch.models import (
+        create_pp_lm_state,
+        make_pp_lm_train_step,
+    )
+    from kubeflow_tpu_torch.models.checkpoint import restore_checkpoint
+
+    mesh = _mesh(spec)
+    pmodel = _pp_model(mesh, cfg, model)
+    step = make_pp_lm_train_step(pmodel)
+    batch = {"tokens": torch.from_numpy(np.asarray(tokens))}
+    state, _ = step(create_pp_lm_state(pmodel, seed=0), batch)
+    _manager(os.path.join(root, "port"), mesh).save(state.step, state)
+    saved = _state_np(state)
+    restored = restore_checkpoint(os.path.join(root, "port"),
+                                  create_pp_lm_state(pmodel, seed=1),
+                                  mesh=mesh)
+    out = {"saved": saved, "restored": _state_np(restored),
+           "step": restored.step, "same_model": restored.apply_fn == pmodel,
+           "q_proj": restored.placements["params"]["blocks/q_proj/kernel"],
+           "q_shape": tuple(restored.params["blocks"]["q_proj"][
+               "kernel"].shape)}
+    restored, metrics = step(restored, batch)
+    out["loss_on"] = float(metrics["loss"])
+    if jax_dir is not None:
+        from_jax = restore_checkpoint(jax_dir,
+                                      create_pp_lm_state(pmodel, seed=2),
+                                      mesh=mesh)
+        out["from_jax"] = _state_np(from_jax)
+        out["from_jax_step"] = from_jax.step
+    return out
+
+
 CASES = {name[len("case_"):]: fn for name, fn in list(globals().items())
          if name.startswith("case_")}
 
