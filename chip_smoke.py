@@ -28,7 +28,8 @@ Phases (a failed phase raises; nothing is caught):
    alone (a batch of one) must equal its row of the batch; kernel, twin and
    library-call times (CUDA events, median of repeated launches, L2
    flushed before each) beside the least time the card could take (bytes
-   over 3.35 TB/s or operations over 989 TFLOP/s).
+   over 3.35 TB/s or operations over the card's dense bf16 peak, 989
+   TFLOP/s on the H100 SXM, from ``kubeflow_tpu_torch.topology``).
 2. serve: the flagship at full width from a seeded init, through
    ``make_engine(max_batch=8, max_len=2048)`` and its ``Scheduler``
    thread: 8 streamed requests (6 greedy, 2 sampled; prompts of 256 to
@@ -115,7 +116,7 @@ Phases (a failed phase raises; nothing is caught):
    falling losses, ``batch_stats`` moved), an eval step, and a checkpoint
    saved and restored leaf by leaf equal (``batch_stats`` and the SGD
    trace included). Printed: images/s, step ms, MFU
-   (3 x forward FLOPs x images/s over 989 TFLOP/s), peak memory, and one
+   (3 x forward FLOPs x images/s over the card's peak), peak memory, and one
    step under ``torch.profiler``.
 
 11. spec (run right after serve, on its params; 11-12 print there):
@@ -214,6 +215,32 @@ Phases (a failed phase raises; nothing is caught):
    M = 16 microbatches of 2048 rows): 1F1B's step peak above what was
    allocated before must be below gpipe's. Printed: step ms of each
    schedule against the meshless step, and each step's peak memory.
+17. hooks (on the same world of one, before it ends): the train config
+   (batch 4 x 2048, seed 0) through ``run_with_checkpointing`` with the
+   train loop's hooks: a ``StepTelemetry`` (FLOPs a sequence from
+   ``train_flops_per_sequence``: 6 x the product parameters x S + 6 x L x
+   S^2 x D), a ``GoodputMeter``, the ``GoodputAnnotationPublisher`` on a
+   recording stand-in for the API, and a ``CheckpointCadenceActuator``
+   (x0.25 of an 8-step cadence) fed a critical firing alert after step 2;
+   SIGTERM while step 4 is in flight, then a fresh state of another seed
+   resumes to step 6 with ``GoodputMeter.from_snapshot``. Gates: one
+   telemetry record a step, each one's MFU its tokens x FLOPs over the
+   card's peak from the port's table; saves at 2 (the tightened cadence)
+   and 4 (the grace save), then 6; the restore charged as downtime and
+   the gap between the runs; 0 < goodput <= 1; the last annotation the
+   meter's ratio to 4 places; 8 launches of each flash kernel a step.
+   Printed: the hooked step's ms beside the same state's plain
+   ``run_steps`` ms. Then ResNet-50 one mesh step at fsdp = 1 (the
+   per-block gathers pass the weights through) from seed 0 on the
+   parallel phase's batch: its loss equal to that phase's mesh and
+   meshless losses, which must have been bit-equal.
+18. bench: ``python -m kubeflow_tpu_torch.bench`` in its own process at
+   its defaults (every section, full width). Gates: one JSON line, every
+   record valid by the port's ``validate_record``, no
+   ``bench_extra_error``, the provenance naming the card, torch and
+   CUDA, no ``vs_baseline``, every kernel launched in the child (its
+   ``kernel_launches``). Printed: each section's value and step ms, the
+   phase's wall time.
 
 Output: one JSON line per phase, the ``{"kernels": [...]}`` summary,
 the card's name and power limit, and last
@@ -232,7 +259,9 @@ import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor-core peak, data sheet
+# The card's dense bf16 tensor-core peak, from the port's table
+# (``kubeflow_tpu_torch.topology``), set in ``main``.
+BF16_FLOPS_PER_S = None
 # Outputs are held element by element: |out - ref| <= rtol * |ref| +
 # atol * rms(ref row), the RMS taken over the last axis (one token's or
 # one head's row), so a late attention row of magnitude ~0.05 is held as
@@ -3547,8 +3576,8 @@ def parallel_phase(torch, timer, root) -> tuple:
     """The world from the platform env (a single replica: none), a mesh
     of one over the card, the LM and ResNet-50 steps on it against the
     meshless steps, the ring's hops at full width; then, on the same
-    world, the mesh_ckpt and pipeline phases. Returns the three phases'
-    lines."""
+    world, the mesh_ckpt, pipeline and hooks phases. Returns the four
+    phases' lines."""
     import torch.distributed as dist
 
     from kubeflow_tpu_torch.parallel import (
@@ -3579,12 +3608,306 @@ def parallel_phase(torch, timer, root) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     pipeline = pipeline_phase(torch, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    hooks = hooks_phase(torch, mesh, resnet, root)
     dist.destroy_process_group()
     launches = {name: lm["launches"].get(name, 0)
                 for name in SERVE_KERNELS + TRAIN_KERNELS}
     return ({"phase": "parallel", "world": world, "rtol": PARALLEL_RTOL,
              "lm": lm, "resnet": resnet, "ring": ring,
-             "launches": launches}, mesh_ckpt, pipeline)
+             "launches": launches}, mesh_ckpt, pipeline, hooks)
+
+
+# hooks phase: the train config through run_with_checkpointing with the
+# train loop's hooks (run on the parallel phase's world of one, before it
+# ends, for its ResNet-50 mesh step). A critical alert fires after step
+# HOOKS_EDGE_AFTER, which tightens the cadence of HOOKS_SAVE_EVERY steps
+# x HOOKS_TIGHTEN to every 2 steps; SIGTERM arrives while step
+# HOOKS_PREEMPT_AT is in flight, and a fresh state resumes through step
+# HOOKS_STEPS.
+HOOKS_STEPS, HOOKS_SAVE_EVERY, HOOKS_TIGHTEN = 6, 8, 0.25
+HOOKS_EDGE_AFTER, HOOKS_PREEMPT_AT = 2, 4
+# Saves: the tightened cadence at step 2, the grace save at the SIGTERM
+# (step 4); after the resume the tightened cadence again at step 6.
+HOOKS_SAVES = ([2, 4], [6])
+HOOKS_PLAIN_STEPS = 6
+
+
+class RecordingApi:
+    """A stand-in for the Kubernetes API that records the merge patches
+    the goodput publisher sends."""
+
+    def __init__(self):
+        self.patches = []  # analysis: allow[py-unbounded-deque]
+
+    def patch_merge(self, api_version, kind, name, patch, namespace=None):
+        self.patches.append((api_version, kind, name, namespace, patch))
+        return patch
+
+
+class ExitRecording:
+    """The goodput publisher with the summaries it was flushed with at
+    each run's exit kept (the loop calls ``flush`` there)."""
+
+    def __init__(self, publisher):
+        self.publisher = publisher
+        self.exits = []  # analysis: allow[py-unbounded-deque]
+
+    def __call__(self, summary):
+        self.publisher(summary)
+
+    def flush(self, summary):
+        self.exits.append(summary)
+        self.publisher.flush(summary)
+
+
+def hooks_phase(torch, mesh, parallel_resnet_reading, root) -> dict:
+    """The hooked checkpointed loop at the train config (module comment
+    above), with the launch counters zeroed just before the first run
+    and read just after the second; the hooked and the plain step's
+    times; then the ResNet-50 mesh step at fsdp = 1 against the parallel
+    phase's reading."""
+    import os
+    import signal
+    import tempfile
+
+    from kubeflow_tpu_torch import topology
+    from kubeflow_tpu_torch.autopilot import (
+        ActuationGuard,
+        CheckpointCadenceActuator,
+    )
+    from kubeflow_tpu_torch.models import (
+        build_lm,
+        create_lm_state,
+        make_lm_train_step,
+        realign_batches,
+        run_steps,
+        run_with_checkpointing,
+    )
+    from kubeflow_tpu_torch.models.checkpoint import CheckpointManager
+    from kubeflow_tpu_torch.models.transformer import (
+        train_flops_per_sequence,
+    )
+    from kubeflow_tpu_torch.obs import (
+        GoodputAnnotationPublisher,
+        GoodputMeter,
+        StepTelemetry,
+    )
+    from kubeflow_tpu_torch.ops import _build
+
+    cfg = train_config(torch)
+    flops = train_flops_per_sequence(cfg, TRAIN_SEQ)
+    gen = torch.Generator(device="cuda").manual_seed(2031)
+    batches = [{"tokens": torch.randint(0, cfg.vocab,
+                                        (TRAIN_BATCH, TRAIN_SEQ),
+                                        device="cuda", generator=gen)}
+               for _ in range(HOOKS_STEPS)]
+    step = make_lm_train_step(cfg=cfg)
+    telemetry = StepTelemetry(flops_per_example=flops)
+    meter = GoodputMeter()
+    api = RecordingApi()
+    publisher = ExitRecording(GoodputAnnotationPublisher(api, "default",
+                                                         "smoke"))
+    actuator = CheckpointCadenceActuator(
+        tighten_factor=HOOKS_TIGHTEN,
+        guard=ActuationGuard(min_interval_s=0.0))
+    fired = {}
+
+    def edge_after(state, batch):
+        state, metrics = step(state, batch)
+        if state.step == HOOKS_EDGE_AFTER and not fired:
+            fired["at"] = state.step
+            actuator.on_transition({
+                "kind": "slo_alert", "slo": "train-goodput", "speed": "fast",
+                "severity": "critical", "from": "pending", "to": "firing",
+                "burn": 20.0, "at": time.time(), "namespace": None})
+        return state, metrics
+
+    def preempting(stream):
+        for i, batch in enumerate(stream):
+            if i == HOOKS_PREEMPT_AT - 1:   # step HOOKS_PREEMPT_AT in flight
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield batch
+
+    directory = tempfile.mkdtemp(prefix="hooks_", dir=root)
+    hooks = dict(save_every_steps=HOOKS_SAVE_EVERY, telemetry=telemetry,
+                 goodput_publish=publisher, cadence_signal=actuator.factor)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    manager = CheckpointManager(directory, keep=3)
+    state, first = run_with_checkpointing(
+        edge_after, create_lm_state(build_lm(cfg), seed=0),
+        preempting(batches), manager, goodput=meter, **hooks)
+    saves_first = manager.steps()
+    snapshot = meter.snapshot()
+    del state
+    torch.cuda.empty_cache()
+    resumed_meter = GoodputMeter.from_snapshot(snapshot)
+    manager = CheckpointManager(directory, keep=3)
+    state, second = run_with_checkpointing(
+        edge_after, create_lm_state(build_lm(cfg), seed=1),
+        realign_batches(batches, HOOKS_PREEMPT_AT), manager,
+        goodput=resumed_meter, **hooks)
+    launches = dict(_build.LAUNCHES)
+    saves_second = [s for s in manager.steps() if s > HOOKS_PREEMPT_AT]
+    if not (first.preempted and first.final_step == HOOKS_PREEMPT_AT
+            and second.resumed_from_step == HOOKS_PREEMPT_AT
+            and second.final_step == HOOKS_STEPS):
+        _fail(f"hooked runs: {vars(first)} then {vars(second)}")
+    if (saves_first, saves_second) != HOOKS_SAVES or fired != {
+            "at": HOOKS_EDGE_AFTER}:
+        _fail(f"saves {saves_first} and {saves_second} after the edge at "
+              f"{fired}, not {HOOKS_SAVES} (a cadence of "
+              f"{HOOKS_SAVE_EVERY} x {HOOKS_TIGHTEN})")
+    records = list(telemetry.records)
+    if [r["step"] for r in records] != list(range(HOOKS_STEPS)):
+        _fail(f"telemetry recorded steps {[r['step'] for r in records]}")
+    peak = topology.PEAK_BF16_FLOPS[torch.cuda.get_device_name(0)]
+    if telemetry.peak_flops != peak:
+        _fail(f"telemetry's peak {telemetry.peak_flops} is not the card's")
+    for r in records:
+        want = TRAIN_BATCH * flops / (r["step_time_s"] * peak)
+        if not abs(r["mfu"] - want) <= 1e-6 + 1e-5 * want:
+            _fail(f"step {r['step']}: mfu {r['mfu']}, reckoned {want}")
+    downtime = resumed_meter.downtime_s
+    goodput = resumed_meter.summary()
+    ratio = goodput["goodput_ratio"]
+    if not (downtime.get("restore", 0.0) > 0.0 and "gap" in downtime
+            and resumed_meter.steps == HOOKS_STEPS and 0.0 < ratio <= 1.0):
+        _fail(f"goodput: {resumed_meter.summary()}")
+    annotation = api.patches[-1][-1]["metadata"]["annotations"][
+        "obs.kubeflow-tpu.org/goodput-ratio"]
+    exits = publisher.exits
+    if len(exits) != 2 or annotation != (
+            f"{exits[-1]['goodput_ratio']:.4f}") or not abs(
+            float(annotation) - ratio) <= 1e-4:
+        _fail(f"the final annotation {annotation} is not the meter's ratio "
+              f"{ratio} (flushed at exit: {exits})")
+    for name in TRAIN_KERNELS:
+        if launches[name] != HOOKS_STEPS * cfg.layers:
+            _fail(f"{name} launched {launches[name]} times in "
+                  f"{HOOKS_STEPS} hooked steps, not {cfg.layers} a step")
+    hooked_ms = [r["step_time_s"] * 1e3 for r in records]
+    # The same state through plain run_steps: no hook, no per-step sync.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = run_steps(step, state, [batches[-1]] * HOOKS_PLAIN_STEPS)
+    float(metrics["loss"])
+    plain_ms = (time.perf_counter() - t0) * 1e3 / HOOKS_PLAIN_STEPS
+    del state
+    torch.cuda.empty_cache()
+    resnet = hooks_resnet(torch, mesh, parallel_resnet_reading)
+    steady = statistics.median(hooked_ms[1:])
+    return {
+        "phase": "hooks", "steps": HOOKS_STEPS,
+        "flops_per_sequence": flops, "peak_flops": peak,
+        "saves": [saves_first, saves_second], "edge_after": fired["at"],
+        "reports": [vars(first), vars(second)],
+        "telemetry": telemetry.summary(),
+        "mfu": [r["mfu"] for r in records],
+        "goodput": goodput, "annotation": annotation,
+        "publishes": publisher.publisher.publishes,
+        "hooked_step_ms": hooked_ms, "hooked_step_ms_median": steady,
+        "plain_step_ms": plain_ms,
+        "hooked_over_plain": steady / plain_ms,
+        "launches": launches, "resnet": resnet,
+    }
+
+
+def hooks_resnet(torch, mesh, reading) -> dict:
+    """ResNet-50 at the resnet phase's shape: one mesh step at fsdp = 1
+    (the model's per-block gathers pass the weights through) from seed 0
+    on the parallel phase's batch, bit-equal to that phase's mesh and
+    meshless readings."""
+    from kubeflow_tpu_torch.models import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+        resnet50,
+    )
+
+    shape = (RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3)
+    gen = torch.Generator(device="cuda").manual_seed(2027)
+    batch = {"image": torch.randn(shape, generator=gen,
+                                  device="cuda").to(torch.bfloat16),
+             "label": torch.randint(0, RESNET_CLASSES, (RESNET_BATCH,),
+                                    generator=gen, device="cuda")}
+    state = create_train_state(resnet50(num_classes=RESNET_CLASSES), seed=0,
+                               input_shape=shape, tx=make_optimizer(),
+                               mesh=mesh)
+    _, metrics = make_train_step(mesh, smoothing=RESNET_SMOOTHING)(state,
+                                                                   batch)
+    loss = float(metrics["loss"])
+    if not (reading["bit_equal"] and loss == reading["loss"]["mesh"]
+            == reading["loss"]["meshless"]):
+        _fail(f"ResNet-50 mesh step at fsdp = 1: loss {loss} against the "
+              f"parallel phase's {reading['loss']} "
+              f"(bit-equal there: {reading['bit_equal']})")
+    return {"loss": loss, "bit_equal": True, "fsdp": mesh.shape["fsdp"]}
+
+
+# bench phase: ``python -m kubeflow_tpu_torch.bench`` as a user runs it,
+# every section at full width, in a process of its own.
+BENCH_TIMEOUT_S = 600
+
+
+def bench_phase(torch) -> dict:
+    """The port's bench in a subprocess: one JSON line, every record
+    valid, no section failed, the card, torch and CUDA in the
+    provenance, no baseline; the kernels' launches counted in the child
+    and printed by it."""
+    import os
+
+    from kubeflow_tpu_torch.obs import perfwatch
+    from kubeflow_tpu_torch.ops import _build
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KFT_BENCH_")}
+    log = _build.BUILD_DIR / "bench_stderr.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        proc = subprocess.run(
+            [sys.executable, "-m", "kubeflow_tpu_torch.bench"], env=env,
+            stdout=subprocess.PIPE, stderr=err, text=True,
+            timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = [line for line in proc.stdout.splitlines() if line.strip()]
+    if proc.returncode != 0 or len(lines) != 1:
+        _fail(f"the bench exited {proc.returncode} with {len(lines)} lines:"
+              f" {proc.stdout[-2000:]}\n{log.read_text()[-4000:]}")
+    doc = json.loads(lines[0])
+    extras = doc.get("extra_metrics") or []
+    errors = [e for e in extras if e.get("metric") == "bench_extra_error"]
+    if errors:
+        _fail(f"bench sections failed: {errors}")
+    records = perfwatch.records_from_full(doc)
+    if len(records) != 1 + len(extras):
+        _fail(f"{len(records)} bench records for {1 + len(extras)} sections")
+    for record in records:
+        problems = perfwatch.validate_record(record)
+        prov = record["provenance"]
+        if problems or prov["platform"] != "gpu" or prov["device"] != (
+                torch.cuda.get_device_name(0)) or prov["torch"] != (
+                torch.__version__) or prov["cuda"] != torch.version.cuda:
+            _fail(f"bench record {record['section']}: {problems} {prov}")
+        if record.get("vs_baseline") is not None:
+            _fail(f"bench record {record['section']} has a baseline")
+    launches = doc["kernel_launches"]
+    missing = [name for name in SERVE_KERNELS + TRAIN_KERNELS
+               if not launches.get(name)]
+    if missing:
+        _fail(f"the bench launched no {missing}: {launches}")
+    return {"phase": "bench", "wall_s": wall,
+            "values": {r["section"]: r["value"] for r in records},
+            "units": {r["section"]: r["unit"] for r in records},
+            "step_ms": {r["section"]: r.get("step_ms",
+                                            r.get("decode_step_ms"))
+                        for r in records},
+            "resnet_mfu": doc.get("mfu"),
+            "vs_measured_ref": doc.get("vs_measured_ref"),
+            "noise": doc["noise"]["grade"], "provenance": doc["provenance"],
+            "launches": launches}
 
 
 def main() -> int:
@@ -3601,6 +3924,16 @@ def main() -> int:
         return 2
     if not kernels_available():
         print("chip_smoke: the kernels need a compute-capability 9.0 card",
+              file=sys.stderr)
+        return 2
+    from kubeflow_tpu_torch import topology
+
+    global BF16_FLOPS_PER_S
+    BF16_FLOPS_PER_S = topology.PEAK_BF16_FLOPS.get(
+        torch.cuda.get_device_name(0))
+    if BF16_FLOPS_PER_S is None:
+        print("chip_smoke: no dense bf16 peak for "
+              f"{torch.cuda.get_device_name(0)} in the port's table",
               file=sys.stderr)
         return 2
     from kubeflow_tpu_torch.ops import _build
@@ -3667,12 +4000,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="mesh_ckpt_smoke_", dir=_build.BUILD_DIR)
     try:
-        parallel, mesh_ckpt, pipeline = parallel_phase(torch, timer, root)
+        parallel, mesh_ckpt, pipeline, hooks = parallel_phase(torch, timer,
+                                                              root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps(parallel), flush=True)
     print(json.dumps(mesh_ckpt), flush=True)
     print(json.dumps(pipeline), flush=True)
+    print(json.dumps(hooks), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    bench = bench_phase(torch)
+    print(json.dumps(bench), flush=True)
     main_case = {"gemv": "tied_head", "qkv_rope": "flagship",
                  "decode_attention": "serve_shape",
                  "flash_attention": "causal", "flash_dq": "train_causal",
@@ -3692,7 +4031,8 @@ def main() -> int:
     # the parallel phase's mesh LM steps', ``mesh_ckpt_launches`` the
     # mesh_ckpt phase's checkpointed mesh runs' and mesh MoE step's,
     # ``pipeline_launches`` the pipeline phase's steps of its five
-    # schedules.
+    # schedules, ``hooks_launches`` the hooks phase's two checkpointed
+    # runs', ``bench_launches`` the bench's, counted in its process.
     launches = {**serve["launches"], "flash_dq": train["launches"]["flash_dq"],
                 "flash_dkv": train["launches"]["flash_dkv"]}
     meta = {
@@ -3730,7 +4070,9 @@ def main() -> int:
             "moe_launches": moe["launches"][name],
             "parallel_launches": parallel["launches"][name],
             "mesh_ckpt_launches": mesh_ckpt["launches"][name],
-            "pipeline_launches": pipeline["launches"][name]})
+            "pipeline_launches": pipeline["launches"][name],
+            "hooks_launches": hooks["launches"][name],
+            "bench_launches": bench["launches"][name]})
     print(json.dumps({"kernels": summary}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

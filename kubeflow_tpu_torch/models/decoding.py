@@ -176,13 +176,14 @@ def _mm(h, kernel, dtype, transpose_w: bool = False, residual=None):
     use = gemv_fits(b * t, d, n) and (
         DECODE_MM == "gemv" or (DECODE_MM == "auto" and _on_card(h)))
     if use:
+        # The kernel takes contiguous rows; the last position of a batch
+        # (``last_logits_only`` at B > 1) is a strided view.
+        rows = h.reshape(b * t, d).contiguous()
         if residual is not None:
-            return gemv(h.reshape(b * t, d), w,
-                        scale=kernel.scale if quantized else None,
+            return gemv(rows, w, scale=kernel.scale if quantized else None,
                         residual=residual.reshape(b * t, n),
                         transpose_w=transpose_w).reshape(b, t, n)
-        y = gemv(h.reshape(b * t, d), w,
-                 transpose_w=transpose_w).reshape(b, t, n)
+        y = gemv(rows, w, transpose_w=transpose_w).reshape(b, t, n)
     else:
         y = _dense_mm(h, w.to(dtype) if quantized else w, transpose_w)
     if quantized:

@@ -41,10 +41,16 @@ keeps it:
   all-reduced over it.
 - The mean pool sums in f32 and rounds to the compute dtype (``jnp.mean``
   of bf16); the head runs in f32.
+- On an fsdp mesh the reference's step holds a whole weight only while
+  the op that uses it runs. The port gathers one piece at a time: the
+  stem, each residual block and the head run under
+  ``parallel.fsdp.gathered_call``, which gathers the piece's fsdp leaves
+  for its forward and again in its backward.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -53,6 +59,7 @@ import torch.nn.functional as F
 
 from kubeflow_tpu_torch._device import resolve_device
 from kubeflow_tpu_torch.parallel.collectives import all_reduce
+from kubeflow_tpu_torch.parallel.fsdp import gathered_call
 
 MOMENTUM = 0.9
 EPSILON = 1e-5
@@ -242,20 +249,40 @@ class ResNet:
                 index, cin = index + 1, convs[-1][2]
 
     def __call__(self, params: dict[str, Any], batch_stats: dict[str, Any],
-                 images, train: bool = True, group=None):
+                 images, train: bool = True, group=None, mesh=None,
+                 placements: dict | None = None):
+        """``group`` takes the BatchNorm moments over a split batch;
+        ``mesh`` and ``placements`` (every leaf's placement by ``flatten``
+        path) say which leaves ``params`` holds as fsdp shards: the stem,
+        each block and the head gather theirs in turn
+        (``parallel.fsdp.gathered_call``)."""
         dtype = self.dtype
         new_stats: dict[str, Any] = {}
+
+        def stem(w, x):
+            x = _norms(w, batch_stats, new_stats, train, group)(
+                "norm_init", conv(x, w["conv_init"]["kernel"], 2, dtype))
+            return max_pool(F.relu(x))
+
+        def block(w, x, name, convs, stride):
+            norm = _norms(w, batch_stats[name], new_stats.setdefault(name, {}),
+                          train, group)
+            return _block(convs, stride, w, norm, x, dtype)
+
+        def head(w, x):
+            return x.float() @ w["head"]["kernel"] + w["head"]["bias"]
+
+        def run(fn, shards, prefix=""):
+            return gathered_call(mesh, fn, shards, placements, prefix, dtype)
+
         x = images.to(dtype).permute(0, 3, 1, 2)   # NHWC memory, NCHW view
-        x = _norms(params, batch_stats, new_stats, train, group)(
-            "norm_init", conv(x, params["conv_init"]["kernel"], 2, dtype))
-        x = max_pool(F.relu(x))
+        x = run(functools.partial(stem, x=x),
+                {k: params[k] for k in ("conv_init", "norm_init")})
         for name, convs, stride in self.blocks():
-            norm = _norms(params[name], batch_stats[name],
-                          new_stats.setdefault(name, {}), train, group)
-            x = _block(convs, stride, params[name], norm, x, dtype)
+            x = run(functools.partial(block, x=x, name=name, convs=convs,
+                                      stride=stride), params[name], name)
         x = x.mean(dim=(2, 3), dtype=torch.float32).to(dtype)
-        head = params["head"]
-        logits = x.float() @ head["kernel"] + head["bias"]
+        logits = run(functools.partial(head, x=x), {"head": params["head"]})
         return (logits, new_stats) if train else logits
 
     def init_variables(self, seed: int = 0, in_channels: int = 3,

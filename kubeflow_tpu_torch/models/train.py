@@ -19,9 +19,10 @@ fsdp's gathers (``parallel.fsdp``), whose backward reduce-scatters, and
 mesh writes each rank's shards and resumes on another mesh
 (``models/checkpoint``). On a pp mesh these steps leave pp inert, as the
 reference's do: every pp rank holds the whole replica and steps the same
-rows (the pipelined LM is ``models/pipeline_lm``). Step telemetry,
-goodput and the autopilot's cadence signal belong to later slices and
-raise here.
+rows (the pipelined LM is ``models/pipeline_lm``). The loops take the
+reference's hooks: step telemetry and the goodput meter
+(``obs/telemetry``), the goodput annotation (``obs/fleet``) and the
+autopilot's cadence signal (``autopilot/checkpoint``).
 """
 
 from __future__ import annotations
@@ -48,7 +49,6 @@ from kubeflow_tpu_torch.parallel.collectives import (
     all_reduce,
     all_reduce_flat,
 )
-from kubeflow_tpu_torch.parallel.fsdp import gather_leaves
 from kubeflow_tpu_torch.parallel.mesh import (
     AXES,
     gather_block,
@@ -179,10 +179,11 @@ def make_train_step(mesh=None, smoothing: float = 0.1):
     (dp, fsdp) rows, takes every BatchNorm's moments over the whole batch
     (its sums all-reduced over the (dp, fsdp) group, forward and
     backward), scales the loss by the rank's share of the batch so the
-    ranks' losses sum to the global mean, gathers every fsdp-sharded
-    weight whole before the forward (their gradients reduce-scattered in
-    the backward) and all-reduces the gradients over the rest of (dp,
-    fsdp) after it (:func:`reduce_gradients`). Loss and accuracy are the
+    ranks' losses sum to the global mean, has the model gather its
+    fsdp-sharded weights one piece at a time (the stem, each block, the
+    head: ``ResNet.__call__``), again in the backward, where their
+    gradients are reduce-scattered, and all-reduces the gradients over
+    the rest of (dp, fsdp) after it (:func:`reduce_gradients`). Loss and accuracy are the
     whole batch's means."""
     group = None
     if mesh is not None:
@@ -193,18 +194,19 @@ def make_train_step(mesh=None, smoothing: float = 0.1):
             raise ValueError("the state is not on this mesh: "
                              "create_train_state(..., mesh=mesh)")
         images, labels = batch["image"], batch["label"]
-        weights, stats, share = state.params, state.batch_stats, 1.0
+        stats, share, on_mesh = state.batch_stats, 1.0, {}
         if mesh is not None:
             placements = state.placements
             rows = mesh.slice(IMAGE_DATA_AXES, images.shape[0])
             share = (rows.stop - rows.start) / images.shape[0]
             images, labels = images[rows], labels[rows]
-            weights = gather_leaves(mesh, weights, placements["params"])
             stats = tree_map_with_path(
                 lambda path, t: gather_block(
                     mesh, t, placements["batch_stats"][path]), stats)
-        logits, new_stats = state.apply_fn(weights, stats, images,
-                                           train=True, group=group)
+            on_mesh = {"mesh": mesh, "placements": placements["params"]}
+        logits, new_stats = state.apply_fn(state.params, stats, images,
+                                           train=True, group=group,
+                                           **on_mesh)
         loss = cross_entropy(logits, labels, smoothing) * share
         paths = [path for path, _ in flatten(state.params)]
         grads = torch.autograd.grad(loss,
@@ -245,16 +247,27 @@ def make_eval_step():
 
 def run_steps(step, state, batches, telemetry=None):
     """Drive ``step`` over ``batches`` (an iterable of batch dicts),
-    returning ``(state, last_metrics)``. Steps stay asynchronous on the
-    card: nothing here waits for the device."""
-    if telemetry is not None:
-        raise NotImplementedError(
-            "step telemetry belongs to the hooks slice of the port "
-            "(ROADMAP A11)")
+    returning ``(state, last_metrics)``.
+
+    With a :class:`~kubeflow_tpu_torch.obs.telemetry.StepTelemetry`,
+    each step is timed host-synced (reading a metric waits for the
+    step's device work; the clock would otherwise read the launch, not
+    the step) and observed: wall time, examples/s, MFU. Without it steps
+    stay asynchronous on the card: nothing here waits for the device."""
     metrics = None
     for batch in batches:
+        if telemetry is None:
+            state, metrics = step(state, batch)
+            continue
+        t0 = time.perf_counter()
         state, metrics = step(state, batch)
+        telemetry.observe(_batch_size(batch),
+                          _synced_step_seconds(metrics, t0))
     return state, metrics
+
+
+def _batch_size(batch) -> int:
+    return len(next(iter(batch.values())))
 
 
 def _synced_step_seconds(metrics, t0: float) -> float:
@@ -305,19 +318,6 @@ def realign_batches(batches, start_step, *, strict: bool = True):
     return iterator
 
 
-def _refuse_unported(telemetry, goodput, goodput_publish,
-                     cadence_signal) -> None:
-    if telemetry is not None or goodput is not None \
-            or goodput_publish is not None:
-        raise NotImplementedError(
-            "step telemetry and the goodput meter belong to the hooks slice "
-            "of the port (ROADMAP A11)")
-    if cadence_signal is not None:
-        raise NotImplementedError(
-            "the autopilot's checkpoint-cadence signal belongs to the A5 "
-            "leftovers of the port (ROADMAP A5 leftovers)")
-
-
 def run_with_checkpointing(step_fn, state, batches, manager, *,
                            save_every_steps: int = 0,
                            save_every_s: float = 0.0, mesh=None,
@@ -352,21 +352,38 @@ def run_with_checkpointing(step_fn, state, batches, manager, *,
       ``report.resharded`` says the saved and live fingerprints differ
       (the restore outcome ``resumed_cross_topology``). The manager must
       span the world (``process_count`` = its size).
+    - **goodput**: with a :class:`~kubeflow_tpu_torch.obs.telemetry.
+      GoodputMeter` every completed step's host-synced seconds count as
+      useful and the resume is measured as ``restore`` downtime
+      (``reshard`` when it was cross-topology); ``goodput_publish`` (a
+      callable taking ``meter.summary()``, as a
+      :class:`~kubeflow_tpu_torch.obs.fleet.GoodputAnnotationPublisher`)
+      is called at every save cadence and its ``flush`` once at exit,
+      best-effort: a failing publisher is logged and never fails the
+      loop. ``telemetry`` (a :class:`~kubeflow_tpu_torch.obs.telemetry.
+      StepTelemetry`) observes every completed step.
     - **phases**: with a :class:`~kubeflow_tpu_torch.obs.PhaseProfiler`
-      each iteration is split into ``fetch``, ``step`` (host-synced)
-      and ``save``, plus ``restore`` for the resume; with a
+      each iteration is split into ``fetch``, ``step`` (host-synced),
+      ``save`` and ``publish``, plus ``restore`` for the resume (the
+      interval goodput charges as downtime); telemetry observed inside
+      the iteration carries its digest; with a
       :class:`~kubeflow_tpu_torch.obs.FlightRecorder` each step lands
-      one ``train_step`` snapshot.
-
-    ``telemetry``, ``goodput`` and ``goodput_publish`` (A11) and
-    ``cadence_signal`` (A5 leftovers) are not ported and raise when
-    given.
+      one ``train_step`` snapshot. With any of telemetry, goodput or a
+      profiler, steps are host-synced; with none, they stay
+      asynchronous.
+    - **alert-aware cadence**: ``cadence_signal`` is a zero-arg callable
+      returning a save-interval multiplier in (0, 1] (as
+      :meth:`~kubeflow_tpu_torch.autopilot.CheckpointCadenceActuator.
+      factor`): below 1, the wall-clock cadence fires ``factor`` times
+      sooner and the step cadence tightens to ``save_every_steps *
+      factor``. It is read only in process 0's view of the step-boundary
+      decision, which is broadcast, so ranks never act on local
+      readings; one that raises or reads outside (0, 1] reads as 1.0.
 
     Returns ``(state, RunReport)``. The caller owns data-order alignment
     with the global step (:func:`realign_batches`); the resume happens
     before the first batch is drawn.
     """
-    _refuse_unported(telemetry, goodput, goodput_publish, cadence_signal)
     report = RunReport()
     if mesh is not None:
         state = _onto_mesh(state, mesh, tp_rules, manager)
@@ -375,17 +392,28 @@ def run_with_checkpointing(step_fn, state, batches, manager, *,
         return (profiler.phase(name) if profiler is not None
                 else contextlib.nullcontext())
 
-    with _phase("restore"):
+    def _resume():
         resumed = manager.restore_latest_valid(state)
-    if resumed is None:
-        step = _state_step(state)
-    else:
-        state, step = resumed
+        if resumed is None:
+            return state, _state_step(state)
+        new_state, step = resumed
         report.resumed_from_step = step
         info = getattr(manager, "last_restore", None) or {}
         report.resharded = bool(info.get("cross_topology"))
         log.info("resumed from checkpoint step %d%s", step,
                  f" ({info.get('mismatch')})" if report.resharded else "")
+        return new_state, step
+
+    with _phase("restore"):
+        # The profiler's restore phase and goodput's restore (or
+        # reshard) downtime measure the same interval.
+        if goodput is not None:
+            with goodput.downtime("restore") as span:
+                state, step = _resume()
+                if report.resharded:
+                    span.kind = "reshard"
+        else:
+            state, step = _resume()
     report.start_step = report.final_step = step
 
     stop = threading.Event()
@@ -397,20 +425,58 @@ def run_with_checkpointing(step_fn, state, batches, manager, *,
         except ValueError:
             previous_handler = None  # not the main thread: caller's job
 
-    # Wall-clock and SIGTERM triggers are per-host observations; in a
-    # multi-process world process 0's agreed token replaces them.
+    # Wall-clock, SIGTERM and alert-signal triggers are per-host
+    # observations; in a multi-process world process 0's agreed token
+    # replaces them.
     agree = getattr(manager, "process_count", 1) > 1 and (
-        bool(save_every_s) or install_signal_handler)
+        bool(save_every_s) or install_signal_handler
+        or cadence_signal is not None)
     last_save_at = clock()
     last_saved = step
     preempted = False
 
+    def publish_goodput(final: bool = False) -> None:
+        if goodput is None or goodput_publish is None:
+            return
+        # The exit publish bypasses a publisher's rate limit.
+        publish = (getattr(goodput_publish, "flush", goodput_publish)
+                   if final else goodput_publish)
+        try:
+            publish(goodput.summary())
+        except Exception:
+            # Telemetry never fails the loop it describes.
+            log.debug("goodput publish failed", exc_info=True)
+
+    def cadence_factor() -> float:
+        """The alert-aware save-interval multiplier in (0, 1]; anything
+        unusable reads as 1.0."""
+        if cadence_signal is None:
+            return 1.0
+        try:
+            factor = float(cadence_signal())
+        except Exception:
+            log.debug("checkpoint cadence signal failed", exc_info=True)
+            return 1.0
+        if not factor > 0.0:
+            return 1.0
+        return min(factor, 1.0)
+
     def decide() -> str:
-        """One decision per step boundary, taken BEFORE the next step is
-        paid for, so a pending preemption never buys one more step."""
+        """One decision per step boundary (a pending SIGTERM, the
+        wall-clock cadence, the alert-tightened cadence), taken BEFORE
+        the next step is paid for, so a pending preemption never buys one
+        more step. In a multi-process world the token is process 0's."""
+        factor = cadence_factor()
         due_clock = (bool(save_every_s)
-                     and clock() - last_save_at >= save_every_s)
-        token = "stop" if stop.is_set() else ("save" if due_clock else "run")
+                     and clock() - last_save_at >= save_every_s * factor)
+        # A tightened step cadence fires between the modulo points; it is
+        # issued as a "save" token so that ranks obey process 0's view.
+        due_steps_tight = (
+            factor < 1.0 and bool(save_every_steps) and step != last_saved
+            and step - last_saved >= max(1, int(round(save_every_steps
+                                                      * factor))))
+        token = "stop" if stop.is_set() else (
+            "save" if (due_clock or due_steps_tight) else "run")
         if agree:
             token = manager.broadcast_from_zero(f"cadence-{step}", token)
         return token
@@ -443,18 +509,27 @@ def run_with_checkpointing(step_fn, state, batches, manager, *,
                     report.saves += 1
                     last_saved = step
                     last_save_at = clock()
+                    with _phase("publish"):
+                        publish_goodput()
                 with _phase("fetch"):
                     batch = next(batch_iter, done)
                 if batch is done:
                     break
+                seconds = None
                 with _phase("step"):
                     t0 = time.perf_counter()
                     state, metrics = step_fn(state, batch)
                     step += 1
                     report.final_step = step
-                    if profiler is not None:
+                    if (telemetry is not None or goodput is not None
+                            or profiler is not None):
                         # "step" means the step, not its async enqueue.
-                        _synced_step_seconds(metrics, t0)
+                        seconds = _synced_step_seconds(metrics, t0)
+                if seconds is not None:
+                    if telemetry is not None:
+                        telemetry.observe(_batch_size(batch), seconds)
+                    if goodput is not None:
+                        goodput.observe_step(seconds)
                 if recorder is not None:
                     recorder.record(
                         "train_step", step=step,
@@ -475,6 +550,8 @@ def run_with_checkpointing(step_fn, state, batches, manager, *,
                 report.saves += 1
         else:
             manager.wait()
+        with _phase("publish"):
+            publish_goodput(final=True)
     finally:
         if previous_handler is not None:
             signal.signal(signal.SIGTERM, previous_handler)

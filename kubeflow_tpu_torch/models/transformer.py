@@ -452,6 +452,25 @@ def param_count(params: dict[str, Any]) -> int:
     return total
 
 
+def train_flops_per_sequence(cfg: LMConfig, seq: int) -> float:
+    """Training FLOPs of one sequence of ``seq`` tokens (forward and
+    backward, 3x the forward): 6 x the parameters that take part in a
+    product x ``seq``, plus 6 x layers x seq^2 x dim for causal
+    attention. The product parameters are every block's q/k/v/proj and
+    FFN (an MoE block's router and a token's ``moe_top_k`` experts) and
+    the tied head; under a window the attention term counts the live
+    query-key pairs, seq * w - w^2 / 2 in place of seq^2 / 2."""
+    d = cfg.dim
+    attn = 2 * d * d + 2 * d * cfg.num_kv_heads * cfg.head_dim
+    ffn = 2 * d * d * cfg.mlp_ratio
+    blocks = sum(attn + (d * cfg.moe_experts + cfg.moe_top_k * ffn
+                         if is_moe_block(cfg, i) else ffn)
+                 for i in range(cfg.layers))
+    w = cfg.attn_window
+    pairs = seq * seq / 2 if w is None or w >= seq else seq * w - w * w / 2
+    return 6.0 * (blocks + cfg.vocab * d) * seq + 12.0 * cfg.layers * d * pairs
+
+
 def _plain_attention(window: int | None) -> AttnImpl:
     """The plain attention core: :func:`mha_reference` in f32 with the
     config's window, the reference's core off the accelerator."""
@@ -918,7 +937,8 @@ def make_lm_train_step(mesh=None, moe_aux_weight: float | None = None,
 
 
 __all__ = ["LMConfig", "TransformerLM", "Block", "rms_norm", "tied_head",
-           "gelu", "init_params", "param_count", "build_lm", "lm_loss",
+           "gelu", "init_params", "param_count", "train_flops_per_sequence",
+           "build_lm", "lm_loss",
            "create_lm_state", "make_lm_train_step", "AUTO_FUSED_MIN_SEQ",
            "is_moe_block", "moe_ffn", "moe_aux_total", "LM_TP_RULES",
            "check_tp_layout", "lm_placements", "TensorParallel",

@@ -222,16 +222,23 @@ class _GaugeChild:
     def get(self) -> float:
         return float(self.fn())
 
+    def set(self, value: float) -> None:
+        value = float(value)
+        self.fn = lambda: value
+
 
 class Gauge(_Metric):
-    """A gauge read from a function at every scrape (the only kind the
-    gateway has: its queue depth)."""
+    """A gauge read from a function at every scrape (the gateway's queue
+    depth) or holding the last value ``set`` (step telemetry)."""
 
     def _new_child(self):
         return _GaugeChild()
 
     def set_function(self, fn: Callable[[], float]) -> None:
         self._unlabelled().fn = fn
+
+    def set(self, value: float) -> None:
+        self._unlabelled().set(value)
 
     def collect(self):
         fam = GaugeFamily(self.name, self.documentation,

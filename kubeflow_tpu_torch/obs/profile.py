@@ -1,9 +1,11 @@
-"""Phase-level profiling for the serving engine's cycle.
+"""Phase-level profiling for the serving engine's cycle and the train
+loop.
 
-A trimmed copy of ``kubeflow_tpu/obs/profile.py`` as far as the engine
-uses it: :class:`PhaseProfiler` (rolling per-phase percentile digests,
-a per-cycle activation scope) and the device-memory watermark, which
-here reads ``torch.cuda.memory_stats`` and is None on the CPU.
+A trimmed copy of ``kubeflow_tpu/obs/profile.py`` as far as the engine,
+the checkpointed loop and step telemetry use it: :class:`PhaseProfiler`
+(rolling per-phase percentile digests, a per-cycle activation scope),
+:func:`active_digest` and the device-memory watermark, which here reads
+``torch.cuda.memory_stats`` and is None on the CPU.
 
 Environment: ``KFT_PROFILE_WINDOW`` (digest window, default 512) and
 ``KFT_PROFILE_MEMORY`` (anything but "1"/"true"/"yes" disables the
@@ -135,6 +137,17 @@ class PhaseProfiler:
 
     def watermark(self) -> dict | None:
         return memory_watermark() if self.memory else None
+
+
+def active_digest() -> dict | None:
+    """The compact digest of the profiler activated on this context (the
+    phases a :class:`~kubeflow_tpu_torch.obs.telemetry.StepTelemetry`
+    record carries), or None outside an activation or before any phase
+    landed."""
+    prof = _ACTIVE.get()
+    if prof is None:
+        return None
+    return prof.compact() or None
 
 
 def memory_watermark() -> dict | None:

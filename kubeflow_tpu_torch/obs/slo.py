@@ -19,9 +19,10 @@ The gateway's TTFT and inter-token objectives read the port's own
 histograms (``obs/exposition.py``, each backed by a
 :class:`~kubeflow_tpu_torch.obs.metrics.BucketHistogram`) through
 :func:`bucket_histogram_source`; the reference reads prometheus_client
-histograms, which the port does not use. The reconcile, apiserver,
-goodput and checkpoint objectives belong to the control plane and are
-left out.
+histograms, which the port does not use. The train loop's goodput
+meter is a source too (:func:`goodput_source`). The reconcile,
+apiserver, goodput and checkpoint objectives belong to the control plane
+and are left out.
 """
 
 from __future__ import annotations
@@ -115,6 +116,17 @@ def bucket_histogram_source(hist, threshold_s: float):
         if h is None:
             return 0.0, 0.0
         return histogram_good_total(h.snapshot(), threshold_s)
+
+    return read
+
+
+def goodput_source(meter):
+    """Source over a :class:`~kubeflow_tpu_torch.obs.telemetry.
+    GoodputMeter`: good = useful step seconds, total = wall seconds, so
+    the windowed delta is the goodput ratio over the window."""
+
+    def read() -> tuple[float, float]:
+        return float(meter.useful_s), float(meter.wall_s())
 
     return read
 

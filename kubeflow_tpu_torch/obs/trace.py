@@ -92,18 +92,23 @@ def current_span() -> "Span | None":
 
 
 class Span:
-    """One named interval's identity: its :class:`SpanContext` and its
-    parent's span id. The reference's attributes, events, status and
-    times feed its exporters; the port exports nothing, so it keeps
-    none of them."""
+    """One named interval's identity: its :class:`SpanContext`, its
+    parent's span id and its attributes (the goodput meter labels a
+    downtime span with its kind). The reference's events, status and
+    times feed its exporters; the port exports nothing, so it keeps none
+    of them."""
 
-    __slots__ = ("name", "context", "parent_id")
+    __slots__ = ("name", "context", "parent_id", "attributes")
 
     def __init__(self, name: str, context: SpanContext,
                  parent_id: str | None):
         self.name = name
         self.context = context
         self.parent_id = parent_id
+        self.attributes: dict = {}
+
+    def set_attribute(self, key: str, value) -> None:
+        self.attributes[key] = value
 
 
 # Distinguishes "no parent passed: inherit the current span" from an

@@ -11,7 +11,8 @@ out, so that a whole weight lives only while something uses it:
   every fsdp leaf gathered, under ``saved_tensors_hooks``: wherever
   autograd would keep a gathered weight for the backward (the weight, its
   cast to the compute dtype, or a view of either, as the products save
-  them), it keeps a :class:`_Regather` handle instead, and the block's
+  them; a conv kernel's dims reordered and cast to channels-last), it
+  keeps a :class:`_Regather` handle instead, and the block's
   backward all-gathers the shard again where it unpacks the handle. The
   forward's whole weights are freed when the block returns.
 
@@ -83,37 +84,54 @@ def _node_kind(node) -> str:
 
 class _Regather:
     """What a block keeps of a gathered weight for its backward: the
-    shard to gather again, the casts between the gathered weight and the
-    saved tensor, and the saved tensor's view of the result."""
+    shard to gather again, the permutes ahead of the first cast (a conv
+    kernel's HWIO -> OIHW), the casts and the layout they wrote (a cast may change the memory format,
+    as a conv kernel cast to channels-last does), and the saved tensor's
+    view of the result."""
 
-    def __init__(self, ctx, casts: int, dtype, t: torch.Tensor):
+    def __init__(self, ctx, chain: list, dtype, t: torch.Tensor):
         self.shard, self.dim, self.group = ctx.shard, ctx.dim, ctx.group
-        self.casts, self.dtype, self.out_dtype = casts, dtype, t.dtype
+        kinds = [kind for kind, _ in chain]
+        self.casts = kinds.count(_CAST)
+        first = kinds.index(_CAST) if self.casts else 0
+        if any(kind != "Permute" for kind in kinds[:first]):
+            raise RuntimeError(
+                f"a block saves a {tuple(t.shape)} {t.dtype} tensor cast "
+                f"after the views {kinds[:first]} of a gathered fsdp weight: "
+                "the per-block gather replays only a permute there")
+        self.permutes = [node._saved_dims for _, node in chain[:first]]
+        self.dtype, self.out_dtype = dtype, t.dtype
+        base = t if t._base is None else t._base
+        self.layout = (base.size(), base.stride())
         self.geometry = (t.size(), t.stride(), t.storage_offset())
 
     def unpack(self) -> torch.Tensor:
         whole = all_gather_dim(self.shard.detach(), self.dim, self.group)
+        for dims in self.permutes:
+            whole = whole.permute(dims)
         if self.casts == 2:
-            whole = whole.to(self.dtype).to(self.out_dtype)
-        elif self.casts == 1:
-            whole = whole.to(self.out_dtype)
+            whole = whole.to(self.dtype)
+        if self.casts:
+            whole = torch.empty_strided(
+                *self.layout, dtype=self.out_dtype,
+                device=whole.device).copy_(whole)
         return whole.as_strided(*self.geometry)
 
 
 def _pack_for(dtype):
     def pack(t):
-        node, casts = t.grad_fn, 0
+        node, chain = t.grad_fn, []
         while node is not None and not isinstance(
                 node, GatherShard._backward_cls):
             kind = _node_kind(node)
-            if kind == _CAST:
-                casts += 1
-            elif kind not in _VIEWS:
+            if kind != _CAST and kind not in _VIEWS:
                 return t
+            chain.append((kind, node))
             inputs = [n for n, _ in node.next_functions if n is not None]
             node = inputs[0] if len(inputs) == 1 else None
         if node is None:
             return t
+        casts = sum(kind == _CAST for kind, _ in chain)
         whole = node.shard.numel() * node.group.size()
         if casts > 2 or t.untyped_storage().nbytes() != (
                 whole * t.element_size()):
@@ -121,7 +139,7 @@ def _pack_for(dtype):
                 f"a block saves a {tuple(t.shape)} {t.dtype} tensor made "
                 f"from a gathered fsdp weight through {casts} casts and a "
                 "copy: the per-block gather cannot rebuild it")
-        return _Regather(node, casts, dtype, t)
+        return _Regather(node, chain[::-1], dtype, t)
 
     return pack
 

@@ -35,7 +35,10 @@ on the whole batch, from the same seed, and compares them:
   32768, bf16, batch 4 x 512), mesh and meshless. Held: fsdp over every
   card steps below dp over every card (each rank's step peak under
   fsdp below every rank's under dp: fsdp gathers one block's weights at
-  a time and reduce-scatters their gradients in the backward).
+  a time and reduce-scatters their gradients in the backward). Beside
+  it, on dp and fsdp over every card, ResNet-50's state and step peak
+  at 64 images of 224x224 (bf16) a step, printed, not held: its fsdp
+  step too gathers one block's weights at a time.
 - MoE in f32 (the LM above with 4 experts in every 2nd block, top-2):
   on ep over every card, and on sp=2 x ep (cards / 2), against the
   meshless step with the LM's f32 limits. A rank that skips the
@@ -109,6 +112,8 @@ MOE_SPECS = {4: [dict(dp=1, ep=4), dict(dp=1, sp=2, ep=2)],
 CKPT_TARGETS = {4: [dict(dp=2, tp=2), dict(dp=1, tp=4), dict(dp=1, sp=4)],
                 2: [dict(dp=1, tp=2), dict(dp=1, sp=2)]}
 MOE = dict(moe_experts=4, moe_top_k=2)
+# The memory line's ResNet-50 batch (224x224 bf16), split over the ranks.
+RESNET_MEMORY_BATCH = 64
 # Pipeline specs per world size, the schedules each runs, and the
 # microbatch counts of the step-peak readings.
 PP_SPECS = {4: [dict(dp=1, pp=4), dict(dp=2, pp=2), dict(dp=1, pp=2, sp=2),
@@ -274,6 +279,63 @@ def lm_memory(torch, mesh) -> dict:
         del state, metrics
         torch.cuda.empty_cache()
     return out
+
+
+def _tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a nested state (dicts, sequences and
+    objects with attributes, as the optimizers' states are)."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in tree)
+    if hasattr(tree, "__dict__"):
+        return sum(_tensor_bytes(v) for v in vars(tree).values())
+    return 0
+
+
+def resnet_memory(torch, mesh) -> dict:
+    """Per rank, in MB: ResNet-50's state at rest (parameters,
+    batch_stats and the SGD trace) and its peak allocation over one step
+    above what was allocated before, at RESNET_MEMORY_BATCH images of
+    224x224 bf16 over the mesh's (dp, fsdp) ranks. Printed beside the
+    LM's readings, not held."""
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.models import (
+        create_train_state,
+        make_train_step,
+        resnet50,
+    )
+
+    shape = (RESNET_MEMORY_BATCH, 224, 224, 3)
+    gen = torch.Generator(device=mesh.device).manual_seed(29)
+    batch = {"image": torch.randn(shape, generator=gen, device=mesh.device)
+             .to(torch.bfloat16),
+             "label": torch.randint(0, 1000, (shape[0],), generator=gen,
+                                    device=mesh.device)}
+    torch.cuda.synchronize()
+    state = create_train_state(resnet50(num_classes=1000), 0, shape,
+                               mesh=mesh, device=mesh.device)
+    at_rest = sum(_tensor_bytes(getattr(state, group)) for group in (
+        "params", "batch_stats", "opt_state"))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = make_train_step(mesh)(state, batch)
+    float(metrics["loss"])
+    step_peak = torch.cuda.max_memory_allocated() - base
+    mb = 2.0 ** -20
+    mine = [round(at_rest * mb, 1), round(step_peak * mb, 1)]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    del state, metrics, batch
+    torch.cuda.empty_cache()
+    return {"state_mb": [r[0] for r in every],
+            "step_peak_mb": [r[1] for r in every]}
 
 
 def ckpt_check(torch, cpu: bool, root: str) -> dict:
@@ -623,6 +685,9 @@ def rank_main(cpu: bool) -> int:
         if not cpu:
             line["lm_memory"] = memory[json.dumps(spec)] = lm_memory(
                 torch, mesh)
+            if spec in (dict(dp=world), dict(dp=1, fsdp=world)):
+                line["resnet_memory"] = memory[json.dumps(spec)][
+                    "resnet"] = resnet_memory(torch, mesh)
         report(line)
     for spec in MOE_SPECS[world]:
         line = {"moe": spec, "lm_f32": moe_check(
@@ -658,9 +723,12 @@ def rank_main(cpu: bool) -> int:
         fsdp = memory[json.dumps(dict(dp=1, fsdp=world))]["mesh"][
             "step_peak_mb"]
         held = max(fsdp) < min(dp)
-        report({"memory": {"fsdp_step_peak_mb": fsdp,
-                           "dp_step_peak_mb": dp,
-                           "fsdp_below_dp": held}})
+        report({"memory": {
+            "fsdp_step_peak_mb": fsdp, "dp_step_peak_mb": dp,
+            "fsdp_below_dp": held,
+            "resnet_fsdp": memory[json.dumps(dict(dp=1, fsdp=world))][
+                "resnet"],
+            "resnet_dp": memory[json.dumps(dict(dp=world))]["resnet"]}})
         ok = ok and held
     dist.destroy_process_group()
     return 0 if ok else 1

@@ -79,6 +79,7 @@ from kubeflow_tpu_torch.models.checkpoint import (
 from kubeflow_tpu_torch.models.convert import shard_state, train_state_from_jax
 from kubeflow_tpu_torch.models.optim import flatten
 from kubeflow_tpu_torch.models.transformer import LM_TP_RULES
+from kubeflow_tpu_torch.obs.telemetry import GoodputMeter, StepTelemetry
 from kubeflow_tpu_torch.parallel import Mesh, MeshSpec, Sharding
 from kubeflow_tpu_torch.models.train import (
     RunReport,
@@ -877,11 +878,48 @@ class TestRunWithCheckpointing:
         ("cadence_signal", "A5 leftovers")])
     def test_unported_collaborators_name_their_roadmap_item(
             self, tmp_path, kwarg, item):
-        with pytest.raises(NotImplementedError, match=item):
-            run_with_checkpointing(counting_step, fresh_state(), [],
-                                   CheckpointManager(tmp_path),
-                                   install_signal_handler=False,
-                                   **{kwarg: object()})
+        """The collaborators the loop refused until the hooks were ported
+        (the roadmap item each was queued under) take effect: telemetry
+        observes each step, goodput counts them and the restore,
+        the publisher lands at the cadence save and at exit, and the
+        cadence signal tightens an 8-step cadence to every 2 steps."""
+        published = []
+
+        class Publisher:
+            def __call__(self, summary):
+                published.append(("cadence", summary["steps"]))
+
+            def flush(self, summary):
+                published.append(("exit", summary["steps"]))
+
+        hooks = {
+            "telemetry": StepTelemetry(flops_per_example=1e6,
+                                       device_kind="cpu"),
+            "goodput": GoodputMeter(),
+            "goodput_publish": Publisher(),
+            "cadence_signal": lambda: 0.25,
+        }
+        kwargs = {kwarg: hooks[kwarg]}
+        if kwarg == "goodput_publish":
+            kwargs["goodput"] = hooks["goodput"]
+        _, report = run_with_checkpointing(
+            counting_step, fresh_state(), ones_batches(4),
+            CheckpointManager(tmp_path, keep=10), save_every_steps=8,
+            install_signal_handler=False, **kwargs)
+        assert report.final_step == 4
+        if kwarg == "telemetry":
+            assert [r["step"] for r in hooks["telemetry"].records] == [
+                0, 1, 2, 3]
+        if kwarg in ("goodput", "goodput_publish"):
+            assert hooks["goodput"].steps == 4
+            assert set(hooks["goodput"].downtime_s) == {"restore"}
+        if kwarg == "goodput_publish":
+            assert published == [("exit", 4)]   # no cadence save in 4
+        if kwarg == "cadence_signal":
+            assert report.saves == 2
+            assert CheckpointManager(tmp_path).steps() == [2, 4]
+        else:
+            assert report.saves == 0
 
 
 class TestEnvPlumbing:

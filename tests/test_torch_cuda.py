@@ -662,6 +662,34 @@ def test_int8_cache_generate_at_unaligned_layer_offsets(card, monkeypatch,
     assert float((card_logits - cpu_logits).abs().max()) <= TOL_LOGITS_TWINS
 
 
+@pytest.mark.parametrize("quantize_cache", [False, True])
+def test_batched_generate_on_the_card_matches_the_cpu(card, quantize_cache):
+    """``generate`` at batch 4 takes the last position of every row for
+    the head (a strided view at B > 1) through the GEMV kernel: the
+    tokens equal the same call on CPU copies of the params, where every
+    wrapper runs its twin, and every serving kernel launched."""
+    from kubeflow_tpu_torch.models import decoding as tdec
+    from kubeflow_tpu_torch.models.transformer import LMConfig, init_params
+    from kubeflow_tpu_torch.ops import _build
+
+    cfg = LMConfig(vocab=512, layers=2, dim=256, heads=4, kv_heads=2,
+                   dtype=torch.bfloat16)
+    params = init_params(cfg, seed=2, device="cuda", dtype=torch.bfloat16)
+    cpu = {k: {n: {leaf: t.cpu() for leaf, t in v.items()}
+               if isinstance(v, dict) else v.cpu() for n, v in sub.items()}
+           for k, sub in params.items()}
+    prompt = [[(5 * i + 11 * row + 1) % cfg.vocab for i in range(24)]
+              for row in range(4)]
+    _build.reset_launches()
+    out = tdec.generate(cfg, params, prompt, 6,
+                        quantize_cache=quantize_cache)
+    assert all(_build.LAUNCHES[name] for name in (
+        "gemv", "qkv_rope", "decode_attention", "flash_attention"))
+    ref = tdec.generate(cfg, cpu, prompt, 6, quantize_cache=quantize_cache,
+                        device="cpu")
+    assert out.cpu().tolist() == ref.tolist()
+
+
 def _card_lm_state(seed):
     from kubeflow_tpu_torch.models import LMConfig, build_lm, create_lm_state
 

@@ -291,11 +291,15 @@ def lm_world(tmp_path_factory):
     spec = dict(dp=2, fsdp=2, tp=2)
     tasks.append(("resnet:tp", dict(spec=spec, variables=_resnet_np(jstate),
                                     images=images, labels=labels)))
+    tasks.append(("resnet:fsdp4", dict(
+        spec=dict(dp=2, fsdp=4), variables=_resnet_np(jstate), images=images,
+        labels=labels, meshless=True)))
     tasks.append(("mesh_api", {}))
     world = torch_world.World(8, tasks, tmp_path_factory.mktemp("lm_world"))
     for name, (jax_state, tokens, seg, step) in pending.items():
         refs[name].update(_jax_lm_refs(*jax_state, tokens, seg, step))
     refs["resnet_tp"] = _jax_resnet(jstate, images, labels, spec)
+    refs["resnet_whole"] = _jax_resnet(jstate, images, labels)
     return world.wait(), refs
 
 
@@ -462,6 +466,47 @@ def test_resnet_split_batch_equals_the_one_device_step(pair_world, name):
         err, key = _group_errors(out["mesh"]["grads"],
                                  out["meshless"]["grads"])
         assert err <= GRAD_RTOL, (key, err)
+
+
+def test_resnet_fsdp4_step_equals_the_one_device_step(lm_world):
+    """resnet18 at dp=2 x fsdp=4 (one image a rank), its weights gathered
+    a block at a time, against the reference's and the port's one-device
+    steps on the whole batch."""
+    results, refs = lm_world
+    for out in torch_world.outputs(results, "resnet:fsdp4"):
+        _check_resnet(out["mesh"], refs["resnet_whole"])
+        _check_resnet(out["mesh"], out["meshless"])
+        err, key = _group_errors(out["mesh"]["grads"],
+                                 out["meshless"]["grads"])
+        assert err <= GRAD_RTOL, (key, err)
+
+
+def _fsdp_leaves_by_piece(placements: dict) -> dict[str, int]:
+    """The fsdp-sharded leaves of each piece ResNet gathers at once: the
+    stem (``conv_init``, ``norm_init``), each block, the head."""
+    pieces: dict[str, int] = {}
+    for path, placement in placements.items():
+        top = path.split("/")[0]
+        piece = "stem" if top in ("conv_init", "norm_init") else top
+        pieces[piece] = pieces.get(piece, 0) + ("fsdp" in placement)
+    return pieces
+
+
+@pytest.mark.parametrize("name", ["fsdp2", "fsdp4"])
+def test_resnet_fsdp_holds_one_block_whole_at_a_time(lm_world, pair_world,
+                                                     name):
+    """At every gather of the step, the whole weights alive are at most
+    one piece's fsdp leaves (the stem, a block or the head), fewer than
+    all of them, and each piece's leaves were gathered again in its
+    backward (more gathers than leaves)."""
+    results = (pair_world if name == "fsdp2" else lm_world)[0]
+    for out in torch_world.outputs(results, f"resnet:{name}"):
+        pieces = _fsdp_leaves_by_piece(out["placements"])
+        total = sum(pieces.values())
+        assert 0 < max(pieces.values()) < total, pieces
+        assert 0 < out["whole_peak"] <= max(pieces.values()), (
+            out["whole_peak"], pieces)
+        assert out["gathers"] > total
 
 
 def test_initialize_from_env_forms_the_world(pair_world):

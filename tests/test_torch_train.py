@@ -52,6 +52,7 @@ from kubeflow_tpu_torch.models import (
     train_state_from_jax,
 )
 from kubeflow_tpu_torch.models.optim import flatten
+from kubeflow_tpu_torch.obs.telemetry import StepTelemetry
 from kubeflow_tpu_torch.models.transformer import lm_placements
 from kubeflow_tpu_torch.ops.attention import (
     flash_attention,
@@ -457,8 +458,8 @@ def test_unported_training_paths_raise():
     since A10c (tests/test_torch_moe_mesh.py): an ep mesh's step builds
     and an MoE config's expert stacks go on ep. Since A10b a pp mesh
     builds too: outside the pipelined model (tests/
-    test_torch_pipeline_*.py) pp is inert, no leaf placed on it. Only
-    the train-loop hooks (A11) still raise."""
+    test_torch_pipeline_*.py) pp is inert, no leaf placed on it. Since
+    A11 nothing raises: the train-loop hooks run."""
     cfg = LMConfig(dtype=torch.float32, **SMALL)
     model = build_lm(cfg, mesh=_mesh_shape(dp=2, pp=2))
     assert not any("pp" in placement
@@ -473,6 +474,12 @@ def test_unported_training_paths_raise():
     assert placements["block_1/moe/router/kernel"] == ()
     # MoE training is ported (tests/test_torch_moe.py): its step builds.
     assert callable(make_lm_train_step(cfg=LMConfig(moe_experts=2, **SMALL)))
+    # The train-loop hooks (A11) are ported: run_steps observes each step.
     state = create_lm_state(build_lm(cfg), seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        run_steps(make_lm_train_step(cfg=cfg), state, [], telemetry=object())
+    telemetry = StepTelemetry(flops_per_example=1e6, device_kind="cpu")
+    tokens = torch.zeros(2, 8, dtype=torch.long)
+    state, _ = run_steps(make_lm_train_step(cfg=cfg), state,
+                         [{"tokens": tokens}] * 2, telemetry=telemetry)
+    assert state.step == 2
+    assert [(r["step"], r["batch_size"]) for r in telemetry.records] == [
+        (0, 2), (1, 2)]

@@ -374,19 +374,25 @@ def _resnet_state(variables, mesh=None):
 def case_resnet(spec, variables, images, labels, meshless=False):
     """One resnet18 step on a mesh from the reference's variables: loss,
     accuracy, the whole gradients, parameters, ``batch_stats`` and trace
-    after it; with ``meshless`` also the port's one-device step on the
-    whole batch."""
+    after it, and the most fsdp-gathered weights alive at once in the
+    step (:class:`WholeCount`); with ``meshless`` also the port's
+    one-device step on the whole batch."""
     import torch
 
     from kubeflow_tpu_torch.models import gather_state, make_train_step
     from kubeflow_tpu_torch.models.optim import flatten
+    from kubeflow_tpu_torch.parallel import fsdp
 
     mesh = _mesh(spec)
     batch = {"image": torch.from_numpy(images),
              "label": torch.from_numpy(labels)}
     state = _resnet_state(variables, mesh)
     tx = state.tx
-    state, metrics = make_train_step(mesh)(state, batch)
+    count = WholeCount(fsdp)
+    try:
+        state, metrics = make_train_step(mesh)(state, batch)
+    finally:
+        count.close()
     paths = [p for p, _ in flatten(state.params)]
     whole = gather_state(state)
 
@@ -398,7 +404,9 @@ def case_resnet(spec, variables, images, labels, meshless=False):
                 "trace": _whole(state.opt_state[1][0].trace)}
 
     result = {"mesh": record(whole, metrics, _whole_grads(
-        mesh, tx, paths, state.placements["params"]))}
+        mesh, tx, paths, state.placements["params"])),
+        "whole_peak": count.peak, "gathers": count.gathers,
+        "placements": state.placements["params"]}
     if meshless:
         plain = _resnet_state(variables)
         plain, m = make_train_step()(plain, batch)
@@ -625,6 +633,39 @@ def case_ckpt_loop(root, spec, cfg, batches, ranks=None, seed=0):
             "latest": manager.latest_committed_step(),
             "fingerprint": manager.step_fingerprint(
                 manager.latest_committed_step())}
+
+
+def case_goodput_reshard(root, spec_a, spec_b, ranks_b, cfg, batches_a,
+                         batches_b):
+    """The reference's goodput-across-reshard scenario: one
+    ``GoodputMeter`` through two ``run_with_checkpointing`` segments,
+    the first on ``spec_a`` over the world saving every 2 steps, the
+    second on the refactored ``spec_b`` over ``ranks_b`` resuming from
+    the first's checkpoint. Returns the reports and the meter's
+    summary."""
+    import torch
+
+    from kubeflow_tpu_torch.models import LMConfig, make_lm_train_step
+    from kubeflow_tpu_torch.models.train import run_with_checkpointing
+    from kubeflow_tpu_torch.obs.telemetry import GoodputMeter
+    from kubeflow_tpu_torch.parallel import MeshSpec, make_mesh
+
+    goodput = GoodputMeter()
+    reports = []
+    for spec, ranks, batches, seed in ((spec_a, None, batches_a, 0),
+                                       (spec_b, ranks_b, batches_b, 2)):
+        mesh = make_mesh(MeshSpec(**spec), device="cpu", ranks=ranks)
+        if mesh is None:
+            break
+        _, report = run_with_checkpointing(
+            make_lm_train_step(mesh, cfg=LMConfig(**cfg)),
+            _lm_on(mesh, cfg, seed),
+            [{"tokens": torch.from_numpy(t)} for t in batches],
+            _manager(root, mesh), save_every_steps=2, mesh=mesh,
+            install_signal_handler=False, goodput=goodput)
+        reports.append(vars(report))
+    return {"reports": reports, "goodput": goodput.summary(),
+            "ratio": goodput.goodput_ratio()}
 
 
 def case_ckpt_sigterm(root, spec, cfg, batches, stop_after):
