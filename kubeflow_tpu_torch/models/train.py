@@ -45,6 +45,7 @@ from kubeflow_tpu_torch.models.optim import (
     trainable,
     tree_map_with_path,
 )
+from kubeflow_tpu_torch.obs.profile import span
 from kubeflow_tpu_torch.parallel.collectives import (
     all_reduce,
     all_reduce_flat,
@@ -184,48 +185,60 @@ def make_train_step(mesh=None, smoothing: float = 0.1):
     head: ``ResNet.__call__``), again in the backward, where their
     gradients are reduce-scattered, and all-reduces the gradients over
     the rest of (dp, fsdp) after it (:func:`reduce_gradients`). Loss and accuracy are the
-    whole batch's means."""
+    whole batch's means.
+
+    The step runs under ``obs.profile.span`` ranges that a trace reads:
+    ``train.step`` around it all, ``train.forward`` through the loss,
+    ``train.backward`` around the gradients (and their reductions on a
+    mesh), ``train.optimizer`` around the SGD update and what follows
+    it."""
     group = None
     if mesh is not None:
         group = mesh.group(IMAGE_DATA_AXES)
 
     def step(state, batch):
+        with span("train.step"):
+            return _step(state, batch)
+
+    def _step(state, batch):
         if state.mesh is not mesh:
             raise ValueError("the state is not on this mesh: "
                              "create_train_state(..., mesh=mesh)")
-        images, labels = batch["image"], batch["label"]
-        stats, share, on_mesh = state.batch_stats, 1.0, {}
-        if mesh is not None:
-            placements = state.placements
-            rows = mesh.slice(IMAGE_DATA_AXES, images.shape[0])
-            share = (rows.stop - rows.start) / images.shape[0]
-            images, labels = images[rows], labels[rows]
-            stats = tree_map_with_path(
-                lambda path, t: gather_block(
-                    mesh, t, placements["batch_stats"][path]), stats)
-            on_mesh = {"mesh": mesh, "placements": placements["params"]}
-        logits, new_stats = state.apply_fn(state.params, stats, images,
-                                           train=True, group=group,
-                                           **on_mesh)
-        loss = cross_entropy(logits, labels, smoothing) * share
-        paths = [path for path, _ in flatten(state.params)]
-        grads = torch.autograd.grad(loss,
-                                    [t for _, t in flatten(state.params)])
-        if mesh is not None:
-            grads = reduce_gradients(mesh, grads, [
-                gradient_axes(placements["params"][p], IMAGE_DATA_AXES)
-                for p in paths])
-            new_stats = tree_map_with_path(
-                lambda path, t: local_block(
-                    mesh, t, placements["batch_stats"][path]), new_stats)
-        with torch.no_grad():
+        with span("train.forward"):
+            images, labels = batch["image"], batch["label"]
+            stats, share, on_mesh = state.batch_stats, 1.0, {}
+            if mesh is not None:
+                placements = state.placements
+                rows = mesh.slice(IMAGE_DATA_AXES, images.shape[0])
+                share = (rows.stop - rows.start) / images.shape[0]
+                images, labels = images[rows], labels[rows]
+                stats = tree_map_with_path(
+                    lambda path, t: gather_block(
+                        mesh, t, placements["batch_stats"][path]), stats)
+                on_mesh = {"mesh": mesh, "placements": placements["params"]}
+            logits, new_stats = state.apply_fn(state.params, stats, images,
+                                               train=True, group=group,
+                                               **on_mesh)
+            loss = cross_entropy(logits, labels, smoothing) * share
+        with span("train.backward"):
+            paths = [path for path, _ in flatten(state.params)]
+            grads = torch.autograd.grad(
+                loss, [t for _, t in flatten(state.params)])
+            if mesh is not None:
+                grads = reduce_gradients(mesh, grads, [
+                    gradient_axes(placements["params"][p], IMAGE_DATA_AXES)
+                    for p in paths])
+                new_stats = tree_map_with_path(
+                    lambda path, t: local_block(
+                        mesh, t, placements["batch_stats"][path]), new_stats)
+        with span("train.optimizer"), torch.no_grad():
             state.tx.update(grads, state.opt_state, state.params)
             metrics = torch.stack([loss.detach(),
                                    _accuracy(logits, labels) * share])
             if group is not None:
                 all_reduce(metrics, group)
-        state.batch_stats = new_stats
-        state.step += 1
+            state.batch_stats = new_stats
+            state.step += 1
         return state, {"loss": metrics[0], "accuracy": metrics[1]}
 
     return step
@@ -250,19 +263,22 @@ def run_steps(step, state, batches, telemetry=None):
     returning ``(state, last_metrics)``.
 
     With a :class:`~kubeflow_tpu_torch.obs.telemetry.StepTelemetry`,
-    each step is timed host-synced (reading a metric waits for the
-    step's device work; the clock would otherwise read the launch, not
-    the step) and observed: wall time, examples/s, MFU. Without it steps
-    stay asynchronous on the card: nothing here waits for the device."""
+    every step is timed and observed (wall time, examples/s, MFU): on
+    the card by an event pair read one step late, so the host stays a
+    step ahead of the card, on the CPU host-synced (``_StepTimer``).
+    Without it nothing here waits for the device."""
     metrics = None
+    timer = _StepTimer()
     for batch in batches:
         if telemetry is None:
             state, metrics = step(state, batch)
             continue
-        t0 = time.perf_counter()
+        timer.start()
         state, metrics = step(state, batch)
-        telemetry.observe(_batch_size(batch),
-                          _synced_step_seconds(metrics, t0))
+        for size, seconds in timer.stop(_batch_size(batch), metrics):
+            telemetry.observe(size, seconds)
+    for size, seconds in timer.flush():
+        telemetry.observe(size, seconds)
     return state, metrics
 
 
@@ -270,12 +286,66 @@ def _batch_size(batch) -> int:
     return len(next(iter(batch.values())))
 
 
-def _synced_step_seconds(metrics, t0: float) -> float:
-    """Host-synced step wall time: reading the first metric waits for
-    the step's device work before the clock is read."""
-    if metrics:
-        float(next(iter(metrics.values())))
-    return time.perf_counter() - t0
+def _step_device(metrics):
+    """The CUDA device a step's first metric lives on, or None."""
+    value = next(iter(metrics.values()), None) if metrics else None
+    if torch.is_tensor(value) and value.is_cuda:
+        return value.device
+    return None
+
+
+def _timing_event(device):
+    """A timing event recorded on ``device``'s current stream."""
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+class _StepTimer:
+    """Wall seconds of a loop's steps, without a sync a step on the card.
+
+    ``start()`` before a step, ``stop(batch_size, metrics)`` after it
+    and ``flush()`` before anything that must see every step counted
+    (a save, a preemption, the loop's end). Each returns the steps it
+    completed as ``(batch_size, seconds)``. A step whose metrics live on
+    the CUDA device the previous step's did is timed by a pair of events
+    on that device's current stream, and read one step late: ``stop``
+    waits only for the previous step's end event, which the card passes
+    while it runs this step. Any other step (the first, or one on the
+    CPU) is host-synced: reading its first metric waits for its work
+    before the host clock is read."""
+
+    def __init__(self):
+        self._device = None
+        self._t0 = 0.0
+        self._start = None
+        self._pending = None
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+        self._start = (None if self._device is None
+                       else _timing_event(self._device))
+
+    def stop(self, batch_size: int, metrics) -> list[tuple[int, float]]:
+        device = _step_device(metrics)
+        if self._start is not None and device == self._device:
+            end = _timing_event(device)
+            done = self.flush()
+            self._pending = (batch_size, self._start, end)
+            return done
+        done = self.flush()
+        if metrics:
+            float(next(iter(metrics.values())))
+        self._device = device
+        return done + [(batch_size, time.perf_counter() - self._t0)]
+
+    def flush(self) -> list[tuple[int, float]]:
+        if self._pending is None:
+            return []
+        batch_size, start, end = self._pending
+        self._pending = None
+        end.synchronize()
+        return [(batch_size, start.elapsed_time(end) / 1e3)]
 
 
 @dataclasses.dataclass
@@ -353,8 +423,8 @@ def run_with_checkpointing(step_fn, state, batches, manager, *,
       (the restore outcome ``resumed_cross_topology``). The manager must
       span the world (``process_count`` = its size).
     - **goodput**: with a :class:`~kubeflow_tpu_torch.obs.telemetry.
-      GoodputMeter` every completed step's host-synced seconds count as
-      useful and the resume is measured as ``restore`` downtime
+      GoodputMeter` every completed step's seconds count as useful
+      and the resume is measured as ``restore`` downtime
       (``reshard`` when it was cross-topology); ``goodput_publish`` (a
       callable taking ``meter.summary()``, as a
       :class:`~kubeflow_tpu_torch.obs.fleet.GoodputAnnotationPublisher`)
@@ -363,14 +433,17 @@ def run_with_checkpointing(step_fn, state, batches, manager, *,
       loop. ``telemetry`` (a :class:`~kubeflow_tpu_torch.obs.telemetry.
       StepTelemetry`) observes every completed step.
     - **phases**: with a :class:`~kubeflow_tpu_torch.obs.PhaseProfiler`
-      each iteration is split into ``fetch``, ``step`` (host-synced),
-      ``save`` and ``publish``, plus ``restore`` for the resume (the
-      interval goodput charges as downtime); telemetry observed inside
-      the iteration carries its digest; with a
+      each iteration is split into ``fetch``, ``step``, ``save`` and
+      ``publish``, plus ``restore`` for the resume (the interval goodput
+      charges as downtime); telemetry observed inside the iteration
+      carries its digest; with a
       :class:`~kubeflow_tpu_torch.obs.FlightRecorder` each step lands
       one ``train_step`` snapshot. With any of telemetry, goodput or a
-      profiler, steps are host-synced; with none, they stay
-      asynchronous.
+      profiler, steps are timed: on the card by an event pair on the
+      step's stream, observed one step late (``step`` then holds the
+      step's enqueue and the wait for the step before it) and flushed
+      before a save, at a preemption and at the loop's end; on the CPU
+      host-synced. With none, nothing waits for the device.
     - **alert-aware cadence**: ``cadence_signal`` is a zero-arg callable
       returning a save-interval multiplier in (0, 1] (as
       :meth:`~kubeflow_tpu_torch.autopilot.CheckpointCadenceActuator.
@@ -488,6 +561,20 @@ def run_with_checkpointing(step_fn, state, batches, manager, *,
             (save_every_steps and step % save_every_steps == 0)
             or token == "save")
 
+    timer = (_StepTimer() if (telemetry is not None or goodput is not None
+                              or profiler is not None) else None)
+
+    def observe(steps) -> None:
+        for batch_size, seconds in steps:
+            if telemetry is not None:
+                telemetry.observe(batch_size, seconds)
+            if goodput is not None:
+                goodput.observe_step(seconds)
+
+    def flush() -> None:
+        if timer is not None:
+            observe(timer.flush())
+
     batch_iter = iter(batches)
     done = object()
     try:
@@ -498,8 +585,10 @@ def run_with_checkpointing(step_fn, state, batches, manager, *,
                 token = decide()
                 if token == "stop":
                     preempted = True
+                    flush()
                     break  # the final sync save below covers the step
                 if cadence_due(token):
+                    flush()
                     with _phase("save"):
                         # Multi-process, `token` is process 0's agreed
                         # decision; the local view survives only when a
@@ -514,22 +603,17 @@ def run_with_checkpointing(step_fn, state, batches, manager, *,
                 with _phase("fetch"):
                     batch = next(batch_iter, done)
                 if batch is done:
+                    flush()
                     break
-                seconds = None
                 with _phase("step"):
-                    t0 = time.perf_counter()
+                    if timer is not None:
+                        timer.start()
                     state, metrics = step_fn(state, batch)
                     step += 1
                     report.final_step = step
-                    if (telemetry is not None or goodput is not None
-                            or profiler is not None):
-                        # "step" means the step, not its async enqueue.
-                        seconds = _synced_step_seconds(metrics, t0)
-                if seconds is not None:
-                    if telemetry is not None:
-                        telemetry.observe(_batch_size(batch), seconds)
-                    if goodput is not None:
-                        goodput.observe_step(seconds)
+                    completed = (timer.stop(_batch_size(batch), metrics)
+                                 if timer is not None else [])
+                observe(completed)
                 if recorder is not None:
                     recorder.record(
                         "train_step", step=step,

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from kubeflow_tpu_torch._device import resolve_device
 from kubeflow_tpu_torch.models.optim import AdamW, flatten, trainable
+from kubeflow_tpu_torch.obs.profile import span
 from kubeflow_tpu_torch.models.train import (
     TrainState,
     gradient_axes,
@@ -875,12 +876,22 @@ def make_lm_train_step(mesh=None, moe_aux_weight: float | None = None,
     every rank, ranks whose ring skips other hops included
     (``parallel.fsdp``); the remaining reductions come after it, in the
     parameters' order. Meshless, the same step runs on the whole batch
-    with no collective."""
+    with no collective.
+
+    The step runs under ``obs.profile.span`` ranges that a trace reads:
+    ``train.step`` around it all, ``train.forward`` through the loss,
+    ``train.backward`` around the gradients (and their reductions on a
+    mesh), ``train.optimizer`` around AdamW and what follows it, as
+    ``make_train_step``'s."""
     loss_cfg = cfg or LMConfig()
     if moe_aux_weight is None:
         moe_aux_weight = loss_cfg.moe_aux_weight
 
     def step(state, batch):
+        with span("train.step"):
+            return _step(state, batch)
+
+    def _step(state, batch):
         model = state.apply_fn
         if getattr(model, "mesh", None) is not mesh:
             raise ValueError("the state is not on this mesh: "
@@ -890,47 +901,55 @@ def make_lm_train_step(mesh=None, moe_aux_weight: float | None = None,
             raise ValueError("the state's placements are not its model's "
                              "layout (LM_TP_RULES): lay it out with "
                              "shard_state(state, mesh)")
-        tokens, seg = batch["tokens"], batch.get("segment_ids")
-        targets, valid = next_token_targets(tokens, seg)
-        rows = cols = slice(None)
-        emb = state.params["embed"]["embedding"]
-        if mesh is not None:
-            rows = mesh.slice(("dp", "fsdp"), tokens.shape[0])
-            cols = mesh.slice("sp", tokens.shape[1])
-            seg = None if seg is None else seg[rows]
-            emb = model.embedding(state.params)
-        shard = {"targets": targets[rows, cols], "valid": valid[rows, cols],
-                 "count": valid.sum().clamp_min(1.0)}
-        fused = _fused(loss_cfg, tokens.shape[1])
-        moe = getattr(getattr(model, "cfg", None), "moe_experts", 0)
-        out, intermediates = model(state.params, tokens[rows], seg,
-                                   return_hidden=fused,
-                                   return_intermediates=True, embedding=emb,
-                                   split_rows=mesh is not None)
-        if fused:
-            ce = fused_lm_loss(out, emb, block=loss_cfg.ce_block, **shard)
-        else:
-            ce = lm_loss(out, **shard)
-        loss, aux = ce, None
-        if moe:
-            aux = moe_aux_weight * moe_aux_total(intermediates)
-            loss = ce + aux
-        paths = [path for path, _ in flatten(state.params)]
-        grads = torch.autograd.grad(loss,
-                                    [t for _, t in flatten(state.params)])
-        if mesh is not None:
-            grads = reduce_gradients(mesh, grads, [
-                gradient_axes(model.placements[p], LM_DATA_AXES,
-                              whole_over_sp="/moe/" in p) for p in paths])
-        with torch.no_grad():
-            state.tx.update(grads, state.opt_state, state.params)
-        loss = loss.detach()
-        if mesh is not None:
-            # The aux is already the whole batch's on every rank.
-            loss = all_reduce(ce.detach().clone(), mesh.group(LM_DATA_AXES))
-            if aux is not None:   # a float 0 under expert choice
-                loss = loss + (aux.detach() if torch.is_tensor(aux) else aux)
-        state.step += 1
+        with span("train.forward"):
+            tokens, seg = batch["tokens"], batch.get("segment_ids")
+            targets, valid = next_token_targets(tokens, seg)
+            rows = cols = slice(None)
+            emb = state.params["embed"]["embedding"]
+            if mesh is not None:
+                rows = mesh.slice(("dp", "fsdp"), tokens.shape[0])
+                cols = mesh.slice("sp", tokens.shape[1])
+                seg = None if seg is None else seg[rows]
+                emb = model.embedding(state.params)
+            shard = {"targets": targets[rows, cols],
+                     "valid": valid[rows, cols],
+                     "count": valid.sum().clamp_min(1.0)}
+            fused = _fused(loss_cfg, tokens.shape[1])
+            moe = getattr(getattr(model, "cfg", None), "moe_experts", 0)
+            out, intermediates = model(state.params, tokens[rows], seg,
+                                       return_hidden=fused,
+                                       return_intermediates=True,
+                                       embedding=emb,
+                                       split_rows=mesh is not None)
+            if fused:
+                ce = fused_lm_loss(out, emb, block=loss_cfg.ce_block,
+                                   **shard)
+            else:
+                ce = lm_loss(out, **shard)
+            loss, aux = ce, None
+            if moe:
+                aux = moe_aux_weight * moe_aux_total(intermediates)
+                loss = ce + aux
+        with span("train.backward"):
+            paths = [path for path, _ in flatten(state.params)]
+            grads = torch.autograd.grad(
+                loss, [t for _, t in flatten(state.params)])
+            if mesh is not None:
+                grads = reduce_gradients(mesh, grads, [
+                    gradient_axes(model.placements[p], LM_DATA_AXES,
+                                  whole_over_sp="/moe/" in p) for p in paths])
+        with span("train.optimizer"):
+            with torch.no_grad():
+                state.tx.update(grads, state.opt_state, state.params)
+            loss = loss.detach()
+            if mesh is not None:
+                # The aux is already the whole batch's on every rank.
+                loss = all_reduce(ce.detach().clone(),
+                                  mesh.group(LM_DATA_AXES))
+                if aux is not None:   # a float 0 under expert choice
+                    loss = loss + (aux.detach() if torch.is_tensor(aux)
+                                   else aux)
+            state.step += 1
         return state, {"loss": loss}
 
     return step

@@ -1,11 +1,19 @@
-"""Phase-level profiling for the serving engine's cycle and the train
-loop.
+"""Phase-level profiling for the serving engine's cycle, the train
+loop and the train steps.
 
 A trimmed copy of ``kubeflow_tpu/obs/profile.py`` as far as the engine,
 the checkpointed loop and step telemetry use it: :class:`PhaseProfiler`
 (rolling per-phase percentile digests, a per-cycle activation scope),
 :func:`active_digest` and the device-memory watermark, which here reads
 ``torch.cuda.memory_stats`` and is None on the CPU.
+
+:func:`span` is the one span primitive: :meth:`PhaseProfiler.phase` and
+the train steps' ``train.step`` / ``train.forward`` / ``train.backward``
+/ ``train.optimizer`` ranges go through it. While a ``torch.profiler``
+records, a span is a ``record_function`` range on the trace's host
+timeline, whose clock is the device operations' clock; under a
+:class:`PhaseProfiler` its host seconds land in that profiler's digest.
+With neither, it costs one flag read and one context-variable read.
 
 Environment: ``KFT_PROFILE_WINDOW`` (digest window, default 512) and
 ``KFT_PROFILE_MEMORY`` (anything but "1"/"true"/"yes" disables the
@@ -20,6 +28,8 @@ import threading
 import time
 from collections import deque
 from typing import Callable
+
+from torch.autograd import profiler as _torch_profiler
 
 from kubeflow_tpu_torch.obs.envknob import env_bool, env_number
 
@@ -102,13 +112,10 @@ class PhaseProfiler:
             if scope is not None:
                 scope[name] = scope.get(name, 0.0) + max(float(seconds), 0.0)
 
-    @contextlib.contextmanager
     def phase(self, name: str):
-        t0 = self._clock()
-        try:
-            yield
-        finally:
-            self.observe(name, self._clock() - t0)
+        """``with profiler.phase(name):`` observes the block's host
+        seconds under ``name`` (a :func:`span` into this profiler)."""
+        return span(name, self)
 
     @contextlib.contextmanager
     def activate(self):
@@ -137,6 +144,56 @@ class PhaseProfiler:
 
     def watermark(self) -> dict | None:
         return memory_watermark() if self.memory else None
+
+
+class _Span:
+    """An open :func:`span`: a ``record_function`` range while a
+    ``torch.profiler`` records, host seconds into ``profiler``."""
+
+    __slots__ = ("_name", "_profiler", "_range", "_t0")
+
+    def __init__(self, name: str, profiler: "PhaseProfiler | None",
+                 recording: bool):
+        self._name = name
+        self._profiler = profiler
+        self._range = (_torch_profiler.record_function(name) if recording
+                       else None)
+        self._t0 = 0.0
+
+    def __enter__(self):
+        if self._range is not None:
+            self._range.__enter__()
+        if self._profiler is not None:
+            self._t0 = self._profiler._clock()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            if self._profiler is not None:
+                self._profiler.observe(self._name,
+                                       self._profiler._clock() - self._t0)
+        finally:
+            if self._range is not None:
+                self._range.__exit__(*exc)
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, profiler: "PhaseProfiler | None" = None):
+    """``with span(name):`` around a stretch of host work. While a
+    ``torch.profiler`` records, a ``record_function(name)`` range; with
+    ``profiler``, or else the :class:`PhaseProfiler` activated on this
+    context, the block's host seconds observed under ``name``. With
+    neither it is a shared no-op: no allocation, no device call, no
+    sync."""
+    recording = _torch_profiler._is_profiler_enabled
+    if profiler is None:
+        profiler = _ACTIVE.get()
+    if profiler is None and not recording:
+        return _OFF
+    return _Span(name, profiler, recording)
 
 
 def active_digest() -> dict | None:

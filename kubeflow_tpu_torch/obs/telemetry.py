@@ -4,8 +4,9 @@ loop and the bench.
 The counterpart of ``kubeflow_tpu/obs/telemetry.py``. One meter serves
 the loop (``models/train.py``'s ``run_steps`` and
 ``run_with_checkpointing``) and the bench (``kubeflow_tpu_torch/bench.py``):
-:meth:`StepTelemetry.observe` is called once per host-synced step, and
-its record goes to
+:meth:`StepTelemetry.observe` is called once per completed step, with
+its wall seconds (on the card the loop's event pair, read one step
+late; host-synced elsewhere), and its record goes to
 
 - an in-memory ring (``records``, bounded by ``OBS_STEP_RECORDS_MAX``)
   the caller aggregates (:meth:`StepTelemetry.summary`),
@@ -107,7 +108,7 @@ class StepTelemetry:
 
     def observe(self, batch_size: int, step_time_s: float,
                 step: int | None = None, **extra) -> dict:
-        """Record one completed step (host-synced wall time); returns the
+        """Record one completed step (its wall time); returns the
         record. Inside a profiler activation the record carries the live
         per-phase digest as ``phases``."""
         step_time_s = max(float(step_time_s), 1e-12)
@@ -195,7 +196,7 @@ class GoodputMeter:
     """Useful step seconds against the wall clock across preemptions,
     restores and reshards.
 
-    It accumulates ``useful_s`` (host-synced seconds of completed steps,
+    It accumulates ``useful_s`` (wall seconds of completed steps,
     :meth:`observe_step`) and ``downtime_s`` by kind (measured spans of
     known non-work, :meth:`downtime`, each also a span on the obs
     tracer), against a wall clock running since construction, or since
@@ -235,7 +236,7 @@ class GoodputMeter:
         }
 
     def observe_step(self, seconds: float) -> None:
-        """One completed, host-synced training step."""
+        """One completed training step of ``seconds``."""
         with self._lock:
             self.useful_s += max(float(seconds), 0.0)
             self.steps += 1

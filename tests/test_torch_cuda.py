@@ -1101,3 +1101,35 @@ def test_batch_norm_group_path_at_world_one_equals_the_groupless_path(
                      *torch.autograd.grad(y, inputs, g)]
     for a, b in zip(out["group"], out["none"]):
         assert torch.equal(a, b)
+
+
+def test_loop_telemetry_times_every_step_without_a_sync_a_step(card,
+                                                               monkeypatch):
+    """``run_steps`` with step telemetry on the card: one record a step,
+    each timed by an event pair, and a metric read (a host sync) on the
+    first step only."""
+    from kubeflow_tpu_torch.models.train import run_steps
+    from kubeflow_tpu_torch.models.transformer import (
+        LMConfig,
+        build_lm,
+        create_lm_state,
+        make_lm_train_step,
+    )
+    from kubeflow_tpu_torch.obs.telemetry import StepTelemetry
+
+    cfg = LMConfig(vocab=512, layers=2, dim=128, heads=2,
+                   dtype=torch.bfloat16)
+    state = create_lm_state(build_lm(cfg), seed=0, device="cuda")
+    batches = [{"tokens": torch.randint(0, 512, (2, 256), device="cuda",
+                                        generator=card)} for _ in range(6)]
+    reads = []
+    to_float = torch.Tensor.__float__
+    monkeypatch.setattr(torch.Tensor, "__float__",
+                        lambda t: reads.append(1) or to_float(t))
+    meter = StepTelemetry(flops_per_example=1e6)
+    run_steps(make_lm_train_step(cfg=cfg), state, batches, telemetry=meter)
+    assert len(reads) == 1
+    times = [r["step_time_s"] for r in meter.records]
+    # The first step builds the kernels; the tiny steps after it take ms.
+    assert len(times) == 6 and all(t > 0 for t in times)
+    assert max(times[1:]) < 1.0
