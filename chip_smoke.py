@@ -30,6 +30,9 @@ Phases (a failed phase raises; nothing is caught):
    flushed before each) beside the least time the card could take (bytes
    over 3.35 TB/s or operations over the card's dense bf16 peak, 989
    TFLOP/s on the H100 SXM, from ``kubeflow_tpu_torch.topology``).
+   The exact three-way bf16 split of an f32 tensor (``split3``, the
+   tied head's backward on the card) at the LM's logit-gradient shape
+   (16384 x 32768) and a ragged width, bit for bit against its twin.
 2. serve: the flagship at full width from a seeded init, through
    ``make_engine(max_batch=8, max_len=2048)`` and its ``Scheduler``
    thread: 8 streamed requests (6 greedy, 2 sampled; prompts of 256 to
@@ -61,10 +64,15 @@ Phases (a failed phase raises; nothing is caught):
 6. train: the 8x1024 MHA LM that ``bench.py``'s ``lm`` mode trains
    (vocab 32768, bf16 compute, f32 parameters from seed 0, AdamW with a
    bf16 first moment) at batch 4 x 2048 tokens: the step-0 loss and
-   gradients of the kernel path against ``build_lm(use_flash=False)``,
-   then 6 steps of ``make_lm_train_step`` on one fixed batch (8 launches
-   of each flash kernel per step, finite and falling losses), then one
-   more step under ``torch.profiler``.
+   gradients of the kernel path (flash kernels; the dense products and
+   the tied head on tensor cores, the head's gradient through
+   ``split3``) against ``build_lm(use_flash=False)`` with its products
+   widened to f32 (``widened_products``), and the tensor-core products
+   alone against the same plain path; then 6 steps of
+   ``make_lm_train_step`` on one fixed batch (8 launches of each flash
+   kernel, 48 dense and 1 head tensor-core products and 1 split a step,
+   finite and falling losses), then one more step under
+   ``torch.profiler``.
 7. ckpt: the train config through ``run_with_checkpointing`` on a seeded
    stream of 8 distinct batches, checkpoints (1.34 GB a step) in a
    directory under ``kubeflow_tpu_torch/build/`` that the run removes at
@@ -249,6 +257,7 @@ the card's name and power limit, and last
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -286,6 +295,9 @@ SERVE_LENGTHS = (1024, 768, 512, 256, 640, 384, 128)
 NEW_TOKENS = 64
 SERVE_KERNELS = ("flash_attention", "gemv", "qkv_rope", "decode_attention")
 TRAIN_KERNELS = ("flash_attention", "flash_dq", "flash_dkv")
+# Kernels an LM train step launches once, whatever its depth: the split
+# of the tied head's f32 logit gradient.
+STEP_KERNELS = ("split3",)
 # Gateway phase: the longest any one HTTP call may take, and how long the
 # pod entrypoint may take to answer /readyz (torch import, card init, a
 # seeded init of 121M parameters, the kernel library loaded).
@@ -398,6 +410,7 @@ def kernel_phase(torch, timer):
     )
     from kubeflow_tpu_torch.ops.decode_qkv import qkv_rope, qkv_rope_reference
     from kubeflow_tpu_torch.ops.gemv import gemv, gemv_reference
+    from kubeflow_tpu_torch.ops.split import split3, split3_reference
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     bf16 = torch.bfloat16
@@ -414,7 +427,8 @@ def kernel_phase(torch, timer):
         return w8.contiguous(), scale.contiguous()
 
     results = {"gemv": [], "qkv_rope": [], "decode_attention": [],
-               "flash_attention": [], "flash_dq": [], "flash_dkv": []}
+               "flash_attention": [], "flash_dq": [], "flash_dkv": [],
+               "split3": []}
 
     def record(kernel, name, out, ref, tol, kernel_fn, plain_fn,
                library_fn, nbytes, flops, iters=30, **extra):
@@ -630,6 +644,32 @@ def kernel_phase(torch, timer):
                library, (q.numel() * 2 + kk.numel() * 4 + q.numel() * 2),
                4 * h * d * pairs)
     train_attention_cases(torch, randn, record)
+
+    # ---- split3: the LM train step's (tokens, vocab) f32 logit
+    # gradient, and a width that is no multiple of 4 (the kernel's
+    # one-element path). Softmax-like values: ~1/(vocab x tokens), one
+    # large negative entry a row. Exact: the kernel's bits are the twin's.
+    for name, rows, cols in [("lm_head_grad", 16384, 32768),
+                             ("ragged", 2048, 4099)]:
+        g = torch.rand(rows, cols, generator=gen, device="cuda") * (
+            2.0 / (rows * cols))
+        hot = torch.randint(0, cols, (rows,), generator=gen, device="cuda")
+        g[torch.arange(rows, device="cuda"), hot] = -1.0 / rows
+        out = split3(g)
+        torch.cuda.synchronize()
+        if not torch.equal(out, split3_reference(g)):
+            _fail(f"split3[{name}] differs from its twin")
+        again = split3(g)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            _fail(f"split3[{name}]: two launches gave different bits")
+        b_ms, b_by = bound(rows * cols * 10, 0)
+        results["split3"].append({
+            "case": name, "max_abs_err": 0.0, "tol_used": 0.0,
+            "bit_equal": True, "ms": timer(lambda g=g: split3(g)),
+            "plain_ms": timer(lambda g=g: split3_reference(g)),
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+        del g, hot, out, again
     return results
 
 
@@ -1424,14 +1464,41 @@ def train_setup(torch):
     return cfg, state, tokens
 
 
+@contextlib.contextmanager
+def widened_products(torch):
+    """The LM's dense products and tied head as the widened f32
+    expressions they run off the card (bf16 operands widened, multiplied
+    in f32, the dense results rounded once): the plain path's products,
+    independent of the tensor-core path the card takes."""
+    from kubeflow_tpu_torch.models import transformer
+
+    def dense(h, kernel, dtype):
+        return (h.to(dtype).float() @ kernel.to(dtype).float()).to(dtype)
+
+    def head(x, embedding, dtype):
+        return torch.einsum("bsd,vd->bsv", x.to(dtype).float(),
+                            embedding.to(dtype).float())
+
+    real = transformer._dense, transformer.tied_head
+    transformer._dense, transformer.tied_head = dense, head
+    try:
+        yield
+    finally:
+        transformer._dense, transformer.tied_head = real
+
+
 def step0_readings(torch, cfg, state, tokens) -> dict:
     """Step-0 loss and gradients through five attention cores, compared
     leaf by leaf in relative norm: the kernels and their plain twins
     against the plain path (``build_lm(use_flash=False)``) and against
     each other; the plain core with delta from a bf16 O, and with delta
     from the f32 O (a control: summation order only), against the plain
-    path. Checks nothing: ``train_phase`` checks the kernels' reading
-    against the plain path, and a run with a planted fault reads them."""
+    path. Every core but the kernel path's takes ``widened_products``;
+    the kernel path takes the card's tensor-core products, and so does
+    ``products``, the plain path's attention with them, read against the
+    plain path. Checks nothing: ``train_phase`` checks the kernel path's
+    and the products' readings against the plain path, and a run with a
+    planted fault reads them."""
     from kubeflow_tpu_torch.models import TransformerLM, build_lm, lm_loss
     from kubeflow_tpu_torch.models.optim import flatten
 
@@ -1446,14 +1513,19 @@ def step0_readings(torch, cfg, state, tokens) -> dict:
     cores = {
         "plain": build_lm(cfg, use_flash=False),
         "kernel": build_lm(cfg, use_flash=True),
+        "products": build_lm(cfg, use_flash=False),
         "twins": TransformerLM(cfg, twin_attention(torch)),
         "bf16_delta": TransformerLM(cfg, rounded_delta_attention(torch, True)),
         "f32_delta": TransformerLM(cfg, rounded_delta_attention(torch, False)),
     }
     losses, grads = {}, {}
     for name, model in cores.items():
-        losses[name], grads[name] = loss_and_grads(model)
+        products = (contextlib.nullcontext() if name in ("kernel", "products")
+                    else widened_products(torch))
+        with products:
+            losses[name], grads[name] = loss_and_grads(model)
     pairs = {"kernel_vs_plain": ("kernel", "plain"),
+             "products_vs_plain": ("products", "plain"),
              "twins_vs_plain": ("twins", "plain"),
              "kernel_vs_twins": ("kernel", "twins"),
              "bf16_delta_vs_plain": ("bf16_delta", "plain"),
@@ -1474,25 +1546,33 @@ def train_phase(torch):
     from torch.profiler import ProfilerActivity, profile
 
     from kubeflow_tpu_torch.models import make_lm_train_step
-    from kubeflow_tpu_torch.models.transformer import param_count
+    from kubeflow_tpu_torch.models.transformer import (
+        TENSOR_CORE_PRODUCTS,
+        param_count,
+    )
     from kubeflow_tpu_torch.ops import _build
 
     cfg, state, tokens = train_setup(torch)
     batch = {"tokens": tokens}
     step0 = step0_readings(torch, cfg, state, tokens)
-    kernel_loss, plain_loss = step0["loss"]["kernel"], step0["loss"]["plain"]
+    plain_loss = step0["loss"]["plain"]
+    for core in ("kernel", "products"):
+        loss = step0["loss"][core]
+        worst, err = step0["worst"][f"{core}_vs_plain"]
+        if not abs(loss - plain_loss) <= TRAIN_LOSS_TOL:
+            _fail(f"step-0 loss {loss} of the {core} path differs from the "
+                  f"plain path's {plain_loss} by more than {TRAIN_LOSS_TOL}")
+        if not err <= TRAIN_GRAD_TOL:
+            _fail(f"step-0 gradient of {worst} of the {core} path is {err} "
+                  f"from the plain path's in relative norm (limit "
+                  f"{TRAIN_GRAD_TOL})")
     worst, err = step0["worst"]["kernel_vs_plain"]
-    if not abs(kernel_loss - plain_loss) <= TRAIN_LOSS_TOL:
-        _fail(f"step-0 loss {kernel_loss} differs from the plain path's "
-              f"{plain_loss} by more than {TRAIN_LOSS_TOL}")
-    if not err <= TRAIN_GRAD_TOL:
-        _fail(f"step-0 gradient of {worst} is {err} from the plain path's "
-              f"in relative norm (limit {TRAIN_GRAD_TOL})")
 
     step = make_lm_train_step(cfg=cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
+    products0 = dict(TENSOR_CORE_PRODUCTS)
     losses, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1500,11 +1580,22 @@ def train_phase(torch):
         losses.append(float(metrics["loss"]))   # syncs the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = dict(_build.LAUNCHES)
+    products = {name: TENSOR_CORE_PRODUCTS[name] - products0[name]
+                for name in products0}
     peak = torch.cuda.max_memory_allocated()
     for name in TRAIN_KERNELS:
         if launches[name] != TRAIN_STEPS * cfg.layers:
             _fail(f"{name} launched {launches[name]} times in "
                   f"{TRAIN_STEPS} steps, not {cfg.layers} per step")
+    for name in STEP_KERNELS:
+        if launches[name] != TRAIN_STEPS:
+            _fail(f"{name} launched {launches[name]} times in "
+                  f"{TRAIN_STEPS} steps, not once a step")
+    want = {"dense_mm": 6 * cfg.layers * TRAIN_STEPS,
+            "head_mm": TRAIN_STEPS}
+    if products != want:
+        _fail(f"tensor-core products in {TRAIN_STEPS} steps: {products}, "
+              f"not {want}")
     if not all(math.isfinite(x) for x in losses):
         _fail(f"non-finite losses {losses}")
     if not losses[-1] < losses[0]:
@@ -1523,7 +1614,8 @@ def train_phase(torch):
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / steady * 1e3,
         "max_memory_allocated": peak, "launches": launches,
         "launches_per_step": {n: launches[n] / TRAIN_STEPS
-                              for n in TRAIN_KERNELS},
+                              for n in TRAIN_KERNELS + STEP_KERNELS},
+        "tensor_core_products": products,
         "step0_loss": step0["loss"], "step0_grad_rel_err_max": err,
         "step0_grad_rel_err_worst_leaf": worst,
         "step0_grad_worst": step0["worst"],
@@ -2621,7 +2713,8 @@ def choices_differ(own, pinned) -> int:
 
 def moe_step0(torch, cfg, state, tokens) -> dict:
     """Gate 4: step-0 loss (aux term included) and every leaf's gradient
-    of the kernel path against ``build_lm(use_flash=False)``, with the
+    of the kernel path against ``build_lm(use_flash=False)`` (its
+    products widened, ``widened_products``), with the
     routing pinned: a bf16 attention core moves router inputs by an ulp,
     which flips near-tied expert choices and moves whole tokens between
     experts, so the kernel pass routes to the plain pass's choices
@@ -2645,8 +2738,10 @@ def moe_step0(torch, cfg, state, tokens) -> dict:
                 pin.replay = list(pin.recorded)
             transformer._topk_choices = pin if name != "kernel_unpinned" \
                 else real
-            logits, inter = build_lm(cfg, use_flash=use_flash)(
-                state.params, tokens, return_intermediates=True)
+            with (contextlib.nullcontext() if use_flash
+                  else widened_products(torch)):
+                logits, inter = build_lm(cfg, use_flash=use_flash)(
+                    state.params, tokens, return_intermediates=True)
             aux = moe_aux_total(inter)
             loss = lm_loss(logits, tokens) + cfg.moe_aux_weight * aux
             grads[name] = torch.autograd.grad(loss, leaves)
@@ -3408,7 +3503,7 @@ def mesh_ckpt_phase(torch, mesh, root) -> dict:
     moe = mesh_moe(torch, mesh)
     launches = {name: loop["launches"].get(name, 0)
                 + moe["launches"].get(name, 0)
-                for name in SERVE_KERNELS + TRAIN_KERNELS}
+                for name in SERVE_KERNELS + TRAIN_KERNELS + STEP_KERNELS}
     return {"phase": "mesh_ckpt", "world_size": mesh.size(mesh.axis_names),
             "loop": loop, "restores": restores, "moe": moe,
             "launches": launches}
@@ -3546,7 +3641,8 @@ def pipeline_phase(torch, mesh) -> dict:
                       f"{step0.get(kernel, 0)} times in step 0 and "
                       f"{launches.get(kernel, 0)} in {PIPELINE_STEPS} "
                       f"steps, not {n} a step")
-        for kernel in dict.fromkeys(SERVE_KERNELS + TRAIN_KERNELS):
+        for kernel in dict.fromkeys(SERVE_KERNELS + TRAIN_KERNELS
+                                    + STEP_KERNELS):
             totals[kernel] = totals.get(kernel, 0) + launches.get(kernel, 0)
         runs[name] = {"losses": losses, "step_ms": ms,
                       "step_ms_after_first": statistics.median(ms[1:]),
@@ -3613,7 +3709,7 @@ def parallel_phase(torch, timer, root) -> tuple:
     hooks = hooks_phase(torch, mesh, resnet, root)
     dist.destroy_process_group()
     launches = {name: lm["launches"].get(name, 0)
-                for name in SERVE_KERNELS + TRAIN_KERNELS}
+                for name in SERVE_KERNELS + TRAIN_KERNELS + STEP_KERNELS}
     return ({"phase": "parallel", "world": world, "rtol": PARALLEL_RTOL,
              "lm": lm, "resnet": resnet, "ring": ring,
              "launches": launches}, mesh_ckpt, pipeline, hooks)
@@ -4015,9 +4111,10 @@ def main() -> int:
     main_case = {"gemv": "tied_head", "qkv_rope": "flagship",
                  "decode_attention": "serve_shape",
                  "flash_attention": "causal", "flash_dq": "train_causal",
-                 "flash_dkv": "train_causal"}
+                 "flash_dkv": "train_causal", "split3": "lm_head_grad"}
     # Launches from the phase that runs each kernel: the serve run for
-    # the serving kernels, the train run for the backward kernels. The
+    # the serving kernels, the train run for the backward kernels and
+    # the split (``replaces`` None: it ports no TPU kernel). The
     # flash forward runs on both: ``launches`` is the serve run's,
     # ``train_launches`` the train run's; ``int8_launches`` are the int8
     # phase's engine run's (int8 weights: every gemv and qkv_rope launch
@@ -4034,7 +4131,8 @@ def main() -> int:
     # schedules, ``hooks_launches`` the hooks phase's two checkpointed
     # runs', ``bench_launches`` the bench's, counted in its process.
     launches = {**serve["launches"], "flash_dq": train["launches"]["flash_dq"],
-                "flash_dkv": train["launches"]["flash_dkv"]}
+                "flash_dkv": train["launches"]["flash_dkv"],
+                "split3": train["launches"]["split3"]}
     meta = {
         "flash_attention": ("kubeflow_tpu_torch/csrc/flash_fwd.cu",
                             "kubeflow_tpu/ops/attention.py:158"),
@@ -4048,6 +4146,7 @@ def main() -> int:
                      "kubeflow_tpu/ops/decode_qkv.py:64"),
         "decode_attention": ("kubeflow_tpu_torch/csrc/decode_attention.cu",
                              "kubeflow_tpu/ops/decode_attention.py:65"),
+        "split3": ("kubeflow_tpu_torch/csrc/split3.cu", None),
     }
     summary = []
     for name, (source, replaces) in meta.items():

@@ -41,11 +41,14 @@ from kubeflow_tpu_torch.ops.attention import (
     mha_reference,
 )
 from kubeflow_tpu_torch.ops.cross_entropy import (
+    _mm_f32,
+    _on_tensor_cores,
     fused_lm_loss,
     masked_mean,
     next_token_targets,
 )
 from kubeflow_tpu_torch.ops.ring import ring_attention
+from kubeflow_tpu_torch.ops.split import split3
 from kubeflow_tpu_torch.parallel.collectives import (
     CopyToGroup,
     GatherFromGroup,
@@ -132,17 +135,119 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+# Products the LM ran on the card's tensor cores: one a forward call of
+# ``_dense`` and of ``tied_head`` there (none elsewhere). A counter of
+# engagement beside the kernels' ``_build.LAUNCHES``, not a kernel's.
+TENSOR_CORE_PRODUCTS = {"dense_mm": 0, "head_mm": 0}
+
+# Longest sum one tensor-core product runs for the tied head. The card's
+# f32 accumulation truncates as it adds, so its error grows with the
+# length of the sum: over the head's 3 x 32768 terms it reached 4.3x
+# the card tests' f32 tolerance, chunks of 4096 keep it at 0.35x.
+HEAD_SUM_CHUNK = 4096
+
+
+def _mm_f32_chunked(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) with an f32 result, as ``_mm_f32``, with K cut
+    into sums of ``HEAD_SUM_CHUNK`` terms (one batched product) whose f32
+    partials are added after."""
+    k = a.shape[1]
+    chunks, rest = divmod(k, HEAD_SUM_CHUNK)
+    if chunks <= 1:
+        return _mm_f32(a, b)
+    whole = k - rest
+    a3 = a[:, :whole].unflatten(1, (chunks, HEAD_SUM_CHUNK)).transpose(0, 1)
+    b3 = b[:whole].unflatten(0, (chunks, HEAD_SUM_CHUNK))
+    if _on_tensor_cores(a):
+        out = torch.bmm(a3, b3, out_dtype=torch.float32).sum(0)
+    else:
+        out = torch.bmm(a3.float(), b3.float()).sum(0)
+    if rest:
+        out += _mm_f32(a[:, whole:], b[whole:])
+    return out
+
+
+class _DenseMM(torch.autograd.Function):
+    """(M, in) @ (in, out), both in the compute dtype, to the compute
+    dtype; the backward's two products the same way. Each product has an
+    f32 output (``_mm_f32``: f32 accumulation, split-K partials included,
+    whatever PyTorch's reduced-precision setting) rounded once, where
+    autograd of the widened expression rounds it."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return _mm_f32(h, w).to(h.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        dh = (_mm_f32(g, w.t()).to(h.dtype) if ctx.needs_input_grad[0]
+              else None)
+        dw = (_mm_f32(h.t(), g).to(w.dtype) if ctx.needs_input_grad[1]
+              else None)
+        return dh, dw
+
+
+class _TiedHead(torch.autograd.Function):
+    """(N, D) @ (V, D)^T, both in the compute dtype, to f32 logits. The
+    backward takes the f32 logit gradient as the exact sum of three
+    compute-dtype terms (:func:`ops.split.split3`, laid out (N, 3V)) and
+    runs each gradient as products over them with f32 accumulation, in
+    sums of at most ``HEAD_SUM_CHUNK`` terms, rounded to the operands'
+    dtype where autograd of the widened expression rounds them."""
+
+    @staticmethod
+    def forward(ctx, x, emb):
+        ctx.save_for_backward(x, emb)
+        return _mm_f32(x, emb.t())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, emb = ctx.saved_tensors
+        parts = split3(g.contiguous())
+        dx = demb = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32_chunked(parts, emb.repeat(3, 1)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            v, d = emb.shape
+            demb = _mm_f32_chunked(parts.t(), x).view(3, v, d).sum(0)
+            demb = demb.to(emb.dtype)
+        return dx, demb
+
+
 def tied_head(x: torch.Tensor, embedding: torch.Tensor, dtype) -> torch.Tensor:
     """Logits against the tied embedding: operands in the model dtype,
-    f32 accumulation, f32 logits."""
-    return torch.einsum("bsd,vd->bsv", x.to(dtype).float(),
-                        embedding.to(dtype).float())
+    f32 accumulation, f32 logits.
+
+    On the card with a compute dtype below f32 the product and both of
+    its gradients run on tensor cores (:class:`_TiedHead`; the logit
+    gradient split exactly into three compute-dtype terms), counted in
+    ``TENSOR_CORE_PRODUCTS["head_mm"]``. Elsewhere the operands are
+    widened to f32 first, which is exact, and multiplied in f32."""
+    xc, ec = x.to(dtype), embedding.to(dtype)
+    if not _on_tensor_cores(xc):
+        return torch.einsum("bsd,vd->bsv", xc.float(), ec.float())
+    TENSOR_CORE_PRODUCTS["head_mm"] += 1
+    logits = _TiedHead.apply(xc.reshape(-1, xc.shape[-1]), ec)
+    return logits.reshape(*xc.shape[:-1], logits.shape[-1])
 
 
 def _dense(h: torch.Tensor, kernel: torch.Tensor, dtype) -> torch.Tensor:
     """flax Dense(use_bias=False, dtype=dtype): (.., in) @ (in, out) in
-    the compute dtype with f32 accumulation, rounded to the dtype."""
-    return (h.to(dtype).float() @ kernel.to(dtype).float()).to(dtype)
+    the compute dtype with f32 accumulation, rounded to the dtype.
+
+    On the card with a compute dtype below f32 the product and both of
+    its gradients run on tensor cores (:class:`_DenseMM`), counted in
+    ``TENSOR_CORE_PRODUCTS["dense_mm"]``. Elsewhere the operands are
+    widened to f32 first, which is exact, and the f32 product is
+    rounded."""
+    hc, kc = h.to(dtype), kernel.to(dtype)
+    if not _on_tensor_cores(hc):
+        return (hc.float() @ kc.float()).to(dtype)
+    TENSOR_CORE_PRODUCTS["dense_mm"] += 1
+    y = _DenseMM.apply(hc.reshape(-1, hc.shape[-1]), kc)
+    return y.reshape(*hc.shape[:-1], y.shape[-1])
 
 
 def is_moe_block(cfg: LMConfig, i: int) -> bool:

@@ -40,11 +40,13 @@ _LIB: ctypes.CDLL | None = None
 # launch). chip_smoke.py zeroes these around the serving run and around
 # the training run to show each path went through its kernels.
 LAUNCHES = {"flash_attention": 0, "gemv": 0, "qkv_rope": 0,
-            "decode_attention": 0, "flash_dq": 0, "flash_dkv": 0}
+            "decode_attention": 0, "flash_dq": 0, "flash_dkv": 0,
+            "split3": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "kft_gemv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "kft_qkv_rope": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
@@ -56,6 +58,7 @@ _SIGNATURES = {
                      _I, _I, _F, _P],
     "kft_flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _I, _I, _F, _P],
+    "kft_split3": [_P, _P, _L, _L, _P],
 }
 
 

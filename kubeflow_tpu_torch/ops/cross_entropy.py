@@ -17,8 +17,8 @@ operands (the reference's ``preferred_element_type=float32``). On the
 card they take ``torch.mm(a, b, out_dtype=torch.float32)`` (cuBLAS,
 bf16 operands, f32 accumulation and output); elsewhere the operands are
 widened to f32 first, which is exact for bf16 values, as ``tied_head``
-does. No hand-written kernel: the reference computes this module
-outside any Pallas kernel too.
+does off the card. No hand-written kernel: the reference computes this
+module outside any Pallas kernel too.
 """
 
 from __future__ import annotations
@@ -30,10 +30,17 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
+def _on_tensor_cores(a: torch.Tensor) -> bool:
+    """A product of ``a``'s dtype runs on the operands as they are, on
+    the card's tensor cores with f32 accumulation: a CUDA tensor below
+    f32. Elsewhere the products here widen the operands to f32 first."""
+    return a.is_cuda and a.dtype != torch.float32
+
+
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with f32 accumulation and an f32 result, the operands
     in their own (compute) dtype."""
-    if a.is_cuda and a.dtype != torch.float32:
+    if _on_tensor_cores(a):
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 

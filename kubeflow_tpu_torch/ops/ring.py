@@ -10,8 +10,8 @@ each rank only ever stores one shard.
 The reference computes each hop with ``jnp.einsum`` on the input dtype
 and f32 accumulation, outside any Pallas kernel; :func:`ring_hop` keeps
 those products as torch products (operands widened to f32, which is
-exact for bf16 values, as ``tied_head`` does), so there is no kernel
-here. Running a hop through the flash kernel with lse waits for q/k
+exact for bf16 values, as ``tied_head`` does off the card), so there is
+no kernel here. Running a hop through the flash kernel with lse waits for q/k
 offsets in that kernel (the window band between shards needs them).
 
 Composes with GQA (q folds to (kv_heads, group), so the shards on the

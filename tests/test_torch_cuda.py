@@ -1133,3 +1133,179 @@ def test_loop_telemetry_times_every_step_without_a_sync_a_step(card,
     # The first step builds the kernels; the tiny steps after it take ms.
     assert len(times) == 6 and all(t > 0 for t in times)
     assert max(times[1:]) < 1.0
+
+
+# A bf16 product on tensor cores against its widened twin (the same bf16
+# operands multiplied in f32, rounded once): the f32 sums differ only in
+# order, by ~2^-24 * sqrt(K / 2) of a row's RMS (~5e-6 at K = 16384), so
+# each element rounds to the twin's bf16 value or a neighbour. Near zero
+# that sum noise exceeds a bf16 ulp of the element itself, so an element
+# is held at one ulp of the larger of its magnitude and ULP_FLOOR of its
+# row's RMS (the row RMS floored as in ``_assert_close``). A reduction
+# rounded to bf16 on the way (split-K partials in the output type) misses
+# that by ~2^-9 of a partial, tens of ulps at the floor.
+ULP_FLOOR = 2.0 ** -6
+LM_CELL = {"tokens": 16384, "dim": 1024, "hidden": 4096, "vocab": 32768}
+
+
+def _assert_within_one_ulp(out, twin):
+    assert out.dtype == twin.dtype == torch.bfloat16, (out.dtype, twin.dtype)
+    o, r = out.float(), twin.float()
+    rms = torch.maximum(r.pow(2).mean(-1, keepdim=True).sqrt(),
+                        ROW_RMS_FLOOR * r.pow(2).mean().sqrt())
+    _, exp = torch.frexp(torch.maximum(r.abs(), ULP_FLOOR * rms))
+    ulp = torch.ldexp(torch.ones_like(r), exp - 8)
+    ulps = (o - r).abs() / ulp
+    bad = ~(ulps <= 1)   # NaN fails too
+    assert not bad.any(), (f"{int(bad.sum())} elements beyond one bf16 ulp; "
+                           f"worst {float(ulps.max())} ulps")
+
+
+@pytest.mark.parametrize("tokens", [LM_CELL["tokens"], 256, 32],
+                         ids=["lm_cell", "small", "tiny"])
+@pytest.mark.parametrize("fan_in,fan_out", [(1024, 1024), (1024, 4096),
+                                            (4096, 1024)],
+                         ids=["qkv_proj", "up", "down"])
+def test_dense_on_tensor_cores_matches_the_widened_product(card, fan_in,
+                                                           fan_out, tokens):
+    """``_dense`` against the widened f32 expression it replaces on the
+    card, at the LM cell's shapes (8 x 2048 tokens) and at small batches
+    (down to 32 tokens over a 4096-term sum), where a library is likeliest
+    to split a sum: the bf16 output, the bf16 input gradient and the
+    weight gradient (rounded to bf16, then widened to the f32 kernel's
+    dtype) each within one bf16 ulp. The output and the input gradient
+    equal the f32-output product rounded once, bit for bit: no partial
+    sum of theirs was rounded to bf16 on the way."""
+    from kubeflow_tpu_torch.models.transformer import (
+        TENSOR_CORE_PRODUCTS,
+        _dense,
+    )
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    h = _randn(card, 8, tokens // 8, fan_in).requires_grad_()
+    w = (torch.randn(fan_in, fan_out, device="cuda", generator=card)
+         * fan_in ** -0.5).requires_grad_()
+    g = _randn(card, *h.shape[:-1], fan_out, std=1e-3)
+    before = TENSOR_CORE_PRODUCTS["dense_mm"]
+    out = _dense(h, w, bf16)
+    assert TENSOR_CORE_PRODUCTS["dense_mm"] == before + 1
+    twin = (h.float() @ w.to(bf16).float()).to(bf16)
+    grads = torch.autograd.grad(out, (h, w), g)
+    twin_grads = torch.autograd.grad(twin, (h, w), g)
+    assert grads[1].dtype == twin_grads[1].dtype == torch.float32
+    _assert_within_one_ulp(out, twin)
+    _assert_within_one_ulp(grads[0], twin_grads[0])
+    _assert_within_one_ulp(grads[1].to(bf16), twin_grads[1].to(bf16))
+    assert torch.equal(grads[1], grads[1].to(bf16).float())
+    h2, wb, g2 = h.detach().flatten(0, 1), w.detach().to(bf16), g.flatten(0, 1)
+    assert torch.equal(out.flatten(0, 1),
+                       torch.mm(h2, wb, out_dtype=f32).to(bf16))
+    assert torch.equal(grads[0].flatten(0, 1),
+                       torch.mm(g2, wb.t(), out_dtype=f32).to(bf16))
+
+
+def test_tied_head_on_tensor_cores_matches_the_widened_product(card):
+    """``tied_head`` at the LM cell's shape ((16384, 1024) against the
+    (32768, 1024) embedding): f32 logits within TOL_F32; the backward's
+    f32 sums over the exact three-way split of the f32 logit gradient, in
+    chunks of ``HEAD_SUM_CHUNK`` terms, within TOL_F32 of the f32
+    products (one tensor-core sum over all 3 x 32768 terms misses it:
+    the card's accumulation truncates as it adds); dx (bf16) and the
+    embedding's gradient (rounded to bf16, widened to f32) within one
+    bf16 ulp of the widened expression's."""
+    from kubeflow_tpu_torch.models.transformer import (
+        TENSOR_CORE_PRODUCTS,
+        _mm_f32_chunked,
+        tied_head,
+    )
+    from kubeflow_tpu_torch.ops.split import split3
+
+    bf16 = torch.bfloat16
+    n, d, v = LM_CELL["tokens"], LM_CELL["dim"], LM_CELL["vocab"]
+    x = _randn(card, 8, n // 8, d).requires_grad_()
+    emb = (torch.randn(v, d, device="cuda", generator=card)
+           * 0.02).requires_grad_()
+    # A softmax-like logit gradient: ~1/(vocab x tokens) everywhere, one
+    # large negative entry a row.
+    g = torch.rand(n, v, device="cuda", generator=card) * 2.0 / (v * n)
+    hot = torch.randint(0, v, (n,), device="cuda", generator=card)
+    g[torch.arange(n, device="cuda"), hot] = -1.0 / n
+    g = g.reshape(8, n // 8, v)
+    before = TENSOR_CORE_PRODUCTS["head_mm"]
+    out = tied_head(x, emb, bf16)
+    assert TENSOR_CORE_PRODUCTS["head_mm"] == before + 1
+    twin = torch.einsum("bsd,vd->bsv", x.float(), emb.to(bf16).float())
+    assert out.dtype == torch.float32
+    _assert_close(out, twin, TOL_F32)
+    del twin
+    grads = torch.autograd.grad(out, (x, emb), g)
+    del out
+    xw, ew = x.detach().reshape(n, d), emb.detach().to(bf16)
+    gf = g.reshape(n, v)
+    parts = split3(gf)
+    _assert_close(_mm_f32_chunked(parts, ew.repeat(3, 1)), gf @ ew.float(),
+                  TOL_F32)
+    sums = _mm_f32_chunked(parts.t(), xw).view(3, v, d).sum(0)
+    _assert_close(sums, gf.t() @ xw.float(), TOL_F32)
+    del parts, sums
+    xt = x.detach().float().requires_grad_()
+    et = emb.detach().clone().requires_grad_()
+    twin = torch.einsum("bsd,vd->bsv", xt, et.to(bf16).float())
+    twin_grads = torch.autograd.grad(twin, (xt, et), g)
+    assert grads[0].dtype == bf16 and grads[1].dtype == torch.float32
+    _assert_within_one_ulp(grads[0], twin_grads[0].to(bf16))
+    _assert_within_one_ulp(grads[1].to(bf16), twin_grads[1].to(bf16))
+    assert torch.equal(grads[1], grads[1].to(bf16).float())
+
+
+@pytest.mark.parametrize("shape", [(16384, 32768), (37, 1001), (3, 4)],
+                         ids=["lm_cell", "ragged", "tiny"])
+def test_split3_kernel_matches_its_twin_bit_for_bit(card, shape):
+    """The one-pass split against its plain twin: the same bits, and the
+    three terms sum back to the input exactly (f32 values of magnitude
+    2^-100 to 2^100, both signs, zeros). A width that is no multiple of
+    four takes the kernel's one-element path."""
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.ops.split import split3, split3_reference
+
+    exp = torch.randint(-100, 101, shape, device="cuda", generator=card)
+    mant = 1.0 + torch.rand(shape, device="cuda", generator=card)
+    sign = torch.randint(0, 2, shape, device="cuda", generator=card) * 2 - 1
+    g = (sign * mant * torch.pow(2.0, exp.float())).float()
+    g.view(-1)[::7] = 0.0
+    before = _build.LAUNCHES["split3"]
+    parts = split3(g)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["split3"] == before + 1
+    assert torch.equal(parts, split3_reference(g))
+    cols = shape[1]
+    total = sum(parts[:, i * cols:(i + 1) * cols].double() for i in range(3))
+    assert torch.equal(total.float(), g)
+
+
+def test_lm_cell_step_counts_its_tensor_core_products(card):
+    """One train step of the LM cell's configuration (8 x 1024, vocab
+    32768, 8 x 2048 tokens, the dense loss) runs six block products a
+    layer and the tied head on tensor cores, and splits the head's
+    gradient once."""
+    from kubeflow_tpu_torch.models import (
+        LMConfig,
+        build_lm,
+        create_lm_state,
+        make_lm_train_step,
+    )
+    from kubeflow_tpu_torch.ops import _build
+
+    cfg = LMConfig(vocab=32768, layers=8, dim=1024, heads=8,
+                   dtype=torch.bfloat16)
+    state = create_lm_state(build_lm(cfg), seed=0)
+    tokens = torch.randint(0, cfg.vocab, (8, 2048), device="cuda",
+                           generator=card)
+    from kubeflow_tpu_torch.models.transformer import TENSOR_CORE_PRODUCTS
+
+    before = {**TENSOR_CORE_PRODUCTS, "split3": _build.LAUNCHES["split3"]}
+    _, metrics = make_lm_train_step(cfg=cfg)(state, {"tokens": tokens})
+    assert float(metrics["loss"]) == float(metrics["loss"])
+    after = {**TENSOR_CORE_PRODUCTS, "split3": _build.LAUNCHES["split3"]}
+    moved = {k: after[k] - before[k] for k in before}
+    assert moved == {"dense_mm": 6 * cfg.layers, "head_mm": 1, "split3": 1}

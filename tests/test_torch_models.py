@@ -357,3 +357,181 @@ def test_stacked_params_refusals():
     with pytest.raises(ValueError, match="raw training"):
         tdec.generate(tcfg, sp, [[1, 2]], 2, quantize_weights=True,
                       device="cpu")
+
+
+# The LM's products on the CPU and the card's tensor-core path run on CPU
+# tensors (``models/transformer.py``: ``_dense``, ``tied_head``,
+# ``_DenseMM``, ``_TiedHead``; ``ops/split.py``).
+
+def _spread_f32(shape, lo_exp, hi_exp, seed):
+    """f32 values of magnitude 2^lo_exp to 2^hi_exp, both signs, every
+    fifth one zero (a negative zero among them)."""
+    gen = torch.Generator().manual_seed(seed)
+    exp = torch.randint(lo_exp, hi_exp, shape, generator=gen).float()
+    mant = 1.0 + torch.rand(shape, generator=gen)
+    sign = torch.randint(0, 2, shape, generator=gen).float() * 2 - 1
+    g = sign * mant * torch.pow(2.0, exp)
+    g.view(-1)[::5] = 0.0
+    g.view(-1)[1] = -0.0
+    return g
+
+
+@pytest.mark.parametrize("lo_exp,hi_exp", [(-100, -60), (-60, 0), (0, 100),
+                                           (-100, 100)],
+                         ids=["tiny", "small", "large", "all"])
+def test_split3_reconstructs_f32_values_bit_exactly(lo_exp, hi_exp):
+    """hi + mid + lo gives back every f32 value of magnitude 2^-100 to
+    2^100, and each term is the bf16 rounding of what the terms before it
+    left; the CPU call is the twin and counts no launch."""
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.ops.split import split3, split3_reference
+
+    g = _spread_f32((33, 130), lo_exp, hi_exp, seed=lo_exp + 1000)
+    before = dict(_build.LAUNCHES)
+    parts = split3(g)
+    assert _build.LAUNCHES == before
+    assert parts.dtype == torch.bfloat16 and parts.shape == (33, 390)
+    assert torch.equal(parts, split3_reference(g))
+    hi, mid, lo = parts[:, :130], parts[:, 130:260], parts[:, 260:]
+    assert torch.equal(hi, g.to(torch.bfloat16))
+    assert torch.equal(mid, (g - hi.float()).to(torch.bfloat16))
+    assert torch.equal((hi.double() + mid.double() + lo.double()).float(), g)
+
+
+def test_split3_refuses_what_it_does_not_take():
+    from kubeflow_tpu_torch.ops.split import split3
+
+    with pytest.raises(ValueError):
+        split3(torch.zeros(4, 4, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        split3(torch.zeros(2, 3, 4))
+
+
+def _widened_dense(h, w, dtype):
+    return (h.to(dtype).float() @ w.to(dtype).float()).to(dtype)
+
+
+def _widened_head(x, emb, dtype):
+    return torch.einsum("bsd,vd->bsv", x.to(dtype).float(),
+                        emb.to(dtype).float())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("which", ["dense", "head"])
+def test_dense_and_tied_head_on_the_cpu_keep_the_widened_expression(
+        which, dtype):
+    """On CPU tensors ``_dense`` and ``tied_head`` are the widened f32
+    expressions, bit for bit, gradients included, and count no
+    tensor-core product."""
+    from kubeflow_tpu_torch.models.transformer import (
+        TENSOR_CORE_PRODUCTS,
+        _dense,
+        tied_head,
+    )
+    from kubeflow_tpu_torch.ops import _build
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 9, 48, generator=gen).to(dtype).requires_grad_()
+    if which == "dense":
+        w = (torch.randn(48, 80, generator=gen) * 0.1).requires_grad_()
+        fn, twin = _dense, _widened_dense
+    else:
+        w = (torch.randn(101, 48, generator=gen) * 0.1).requires_grad_()
+        fn, twin = tied_head, _widened_head
+    before = dict(_build.LAUNCHES), dict(TENSOR_CORE_PRODUCTS)
+    out = fn(x, w, dtype)
+    assert (_build.LAUNCHES, TENSOR_CORE_PRODUCTS) == before
+    ref = twin(x, w, dtype)
+    assert out.dtype == ref.dtype and torch.equal(out, ref)
+    g = torch.randn(out.shape, generator=gen).to(out.dtype)
+    for a, b in zip(torch.autograd.grad(out, (x, w), g),
+                    torch.autograd.grad(ref, (x, w), g)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _within_one_bf16_ulp(out, ref):
+    """Each element within one bf16 ulp of the larger of its magnitude
+    and 2^-6 of its row's RMS (f32 sums in another order)."""
+    r = ref.float()
+    rms = r.pow(2).mean(-1, keepdim=True).sqrt()
+    _, exp = torch.frexp(torch.maximum(r.abs(), 2.0 ** -6 * rms))
+    ulp = torch.ldexp(torch.ones_like(r), exp - 8)
+    return bool(((out.float() - r).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("rows,fan_in,fan_out", [(18, 48, 80), (64, 96, 32)])
+def test_dense_tensor_core_function_matches_the_widened_product(
+        rows, fan_in, fan_out):
+    """The card's ``_DenseMM`` run on CPU tensors (its products widened
+    there): the output, dh and dw in the dtypes the widened expression's
+    autograd gives, each within one bf16 ulp of it."""
+    from kubeflow_tpu_torch.models.transformer import _DenseMM
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(rows)
+    h = torch.randn(rows, fan_in, generator=gen).to(bf16).requires_grad_()
+    w = (torch.randn(fan_in, fan_out, generator=gen)
+         * fan_in ** -0.5).requires_grad_()
+    out = _DenseMM.apply(h, w.to(bf16))
+    ref = _widened_dense(h, w, bf16)
+    g = (torch.randn(out.shape, generator=gen) * 1e-3).to(bf16)
+    got = torch.autograd.grad(out, (h, w), g)
+    want = torch.autograd.grad(ref, (h, w), g)
+    assert out.dtype == bf16 and _within_one_bf16_ulp(out, ref)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, a.to(bf16).float().to(a.dtype))
+        assert _within_one_bf16_ulp(a, b)
+
+
+@pytest.mark.parametrize("rows,dim,vocab", [(18, 48, 101), (64, 32, 256)])
+def test_tied_head_tensor_core_function_matches_the_widened_product(
+        rows, dim, vocab):
+    """The card's ``_TiedHead`` run on CPU tensors: f32 logits to 1e-6
+    relative; dx (bf16) and the embedding's gradient (rounded to bf16,
+    widened to f32) within one bf16 ulp of the widened expression's,
+    from a softmax-like f32 logit gradient that bf16 alone would round."""
+    from kubeflow_tpu_torch.models.transformer import _TiedHead
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(vocab)
+    x = torch.randn(1, rows, dim, generator=gen).to(bf16).requires_grad_()
+    emb = (torch.randn(vocab, dim, generator=gen) * 0.05).requires_grad_()
+    out = _TiedHead.apply(x.reshape(rows, dim),
+                          emb.to(bf16)).reshape(1, rows, vocab)
+    ref = _widened_head(x, emb, bf16)
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-6)
+    g = torch.rand(1, rows, vocab, generator=gen) / (rows * vocab)
+    g[0, torch.arange(rows), torch.randint(0, vocab, (rows,),
+                                           generator=gen)] = -1.0 / rows
+    assert not torch.equal(g.to(bf16).float(), g)
+    got = torch.autograd.grad(out, (x, emb), g)
+    want = torch.autograd.grad(ref, (x, emb), g)
+    assert got[0].dtype == bf16 and got[1].dtype == torch.float32
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert _within_one_bf16_ulp(a.reshape(-1, a.shape[-1]),
+                                    b.reshape(-1, b.shape[-1]))
+    assert torch.equal(got[1], got[1].to(bf16).float())
+
+
+@pytest.mark.parametrize("k,transposed", [(9000, False), (8192, True),
+                                          (4100, True), (100, False)],
+                         ids=["rest", "whole_view", "one_chunk", "short"])
+def test_chunked_f32_product_matches_the_widened_product(k, transposed):
+    """``_mm_f32_chunked`` (the tied head's backward products): sums cut
+    at ``HEAD_SUM_CHUNK`` terms, a remainder added after, a transposed
+    operand (the embedding gradient's) read as a view; f32 results equal
+    to the widened product up to the order of the sums."""
+    from kubeflow_tpu_torch.models.transformer import _mm_f32_chunked
+
+    gen = torch.Generator().manual_seed(k)
+    a = torch.randn(24, k, generator=gen).to(torch.bfloat16)
+    if transposed:
+        a = torch.randn(k, 24, generator=gen).to(torch.bfloat16).t()
+    b = torch.randn(k, 40, generator=gen).to(torch.bfloat16)
+    out = _mm_f32_chunked(a, b)
+    assert out.dtype == torch.float32 and out.shape == (24, 40)
+    torch.testing.assert_close(out, a.double() @ b.double(),
+                               rtol=1e-5, atol=1e-4, check_dtype=False)
