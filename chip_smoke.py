@@ -179,7 +179,9 @@ Phases (a failed phase raises; nothing is caught):
    each, timed, with 8 launches of each flash kernel a mesh step.
    ResNet-50 at the resnet phase's shape (batch 256 of 224x224 bf16,
    ``make_optimizer()``, seed 0): one step on the mesh against the
-   meshless one (loss, params and ``batch_stats`` within 1e-5), then 3
+   meshless one (loss, params and ``batch_stats`` within 1e-5; the
+   mesh step runs each BatchNorm kernel once a norm, 53 each, on the
+   group path: the moments all-reduced between the passes), then 3
    timed steps of each. The ring's hop arithmetic at full width (B=1,
    H=8, Hkv=2, S=8192 as 4 shards of 2048, d=128, bf16): ``ring_hop``
    over the 4 source shards of every query shard in one process, dead
@@ -428,7 +430,7 @@ def kernel_phase(torch, timer):
 
     results = {"gemv": [], "qkv_rope": [], "decode_attention": [],
                "flash_attention": [], "flash_dq": [], "flash_dkv": [],
-               "split3": []}
+               "split3": [], **{name: [] for name in BN_KERNELS}}
 
     def record(kernel, name, out, ref, tol, kernel_fn, plain_fn,
                library_fn, nbytes, flops, iters=30, **extra):
@@ -670,7 +672,156 @@ def kernel_phase(torch, timer):
             "plain_ms": timer(lambda g=g: split3_reference(g)),
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
         del g, hot, out, again
+    batch_norm_cases(torch, timer, gen, results)
     return results
+
+
+# BatchNorm kernels: ResNet-50's stem norm (its ReLU after) and a stage-4
+# block's last norm (residual sum and ReLU after) at batch 256, 224x224,
+# bf16. The apply and dx passes must give the twins' bits given the
+# kernels' statistics and sums; the statistics and sums are held to
+# BN_SUM_RTOL (tests/test_torch_cuda.py states why).
+BN_KERNELS = ("bn_stats", "bn_apply", "bn_grad_sums", "bn_dx")
+ALL_KERNELS = SERVE_KERNELS + TRAIN_KERNELS + STEP_KERNELS + BN_KERNELS
+BN_CASES = (("stem", (256, 64, 112, 112), False),
+            ("stage4", (256, 2048, 7, 7), True))
+BN_SUM_RTOL = 1e-5
+
+
+def batch_norm_cases(torch, timer, gen, results) -> None:
+    """Each BatchNorm pass at the cases' shapes against its twin, timed
+    beside its bound (each tensor it streams once over HBM), the twin's
+    time and, as the yardstick, PyTorch's own kernel for the same work:
+    ``torch.batch_norm_stats`` on the stats row,
+    ``torch.batch_norm_backward_reduce`` (its two sums, no ReLU mask) on
+    the grad-sums row, and ``F.batch_norm`` (cuDNN) on the others, its
+    whole forward on the apply row, its whole backward on the dx row.
+    ``max_abs_err`` is measured: 0 for the apply and dx passes, which
+    are held bit for bit, the largest difference from the twin for the
+    statistics and the sums."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import batch_norm as bn
+
+    for name, (n, c, h, w), residual in BN_CASES:
+        def act(std=1.0):
+            return (torch.randn((n, h, w, c), generator=gen, device="cuda")
+                    * std).to(torch.bfloat16).permute(0, 3, 1, 2)
+
+        x, g = act(2.0), act()
+        res = act() if residual else None
+        scale, bias = (torch.randn(c, generator=gen, device="cuda")
+                       for _ in range(2))
+        run_mean = torch.zeros(c, device="cuda")
+        run_var = torch.ones(c, device="cuda")
+        moments = bn.stats(x)
+        want = bn.moments_reference(x)
+        stats_err = float((moments - want).abs().max())
+        stats_used = max(
+            float(((moments[0] - want[0]).abs() / want[1].sqrt()).max()),
+            float(((moments[1] - want[1]).abs() / want[1]).max())
+        ) / BN_SUM_RTOL
+        out, saved, _, _ = bn.apply(x, moments, scale, bias, run_mean,
+                                    run_var, res, True)
+        mean, var, rstd = saved
+        if not torch.equal(out, bn.normalize_reference(
+                x, mean, rstd * scale, bias, res, True)):
+            _fail(f"bn_apply[{name}] differs from its twin given the "
+                  "kernel's statistics")
+        masked = bn.masked_grad(g, out)
+        dbias, dscale = bn.grad_sums(g, x, out, saved)
+        want_b, want_s = bn.grad_sums_reference(masked, x, mean, rstd)
+        sums_err = max(float((dbias - want_b).abs().max()),
+                       float((dscale - want_s).abs().max()))
+        xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
+        tiny = torch.finfo(torch.float32).tiny   # a channel the ReLU zeroes
+        sums_used = max(
+            float(((dbias - want_b).abs()
+                   / masked.float().abs().sum(dim=(0, 2, 3)).clamp_min(tiny)
+                   ).max()),
+            float(((dscale - want_s).abs()
+                   / (masked.float() * xhat).abs().sum(dim=(0, 2, 3))
+                   .clamp_min(tiny)).max())
+        ) / BN_SUM_RTOL
+        del xhat
+        count = n * h * w
+        dx, dres = bn.dx(g, x, out, saved, scale, dbias, dscale, count,
+                         residual)
+        if not torch.equal(dx, bn.dx_reference(masked, x, mean, var, rstd,
+                                               scale, dbias, dscale, count)):
+            _fail(f"bn_dx[{name}] differs from its twin given the "
+                  "kernel's sums")
+        if residual and not torch.equal(dres, masked):
+            _fail(f"bn_dx[{name}]: the residual's gradient is not g'")
+        if not stats_used <= 1.0 or not sums_used <= 1.0:
+            _fail(f"bn[{name}]: statistics at {stats_used}, backward sums "
+                  f"at {sums_used} of their summation-order limit")
+        again = (bn.stats(x), bn.apply(x, moments, scale, bias, run_mean,
+                                       run_var, res, True)[0],
+                 *bn.grad_sums(g, x, out, saved),
+                 bn.dx(g, x, out, saved, scale, dbias, dscale, count,
+                       residual)[0])
+        for a, b in zip(again, (moments, out, dbias, dscale, dx)):
+            if not torch.equal(a, b):
+                _fail(f"bn[{name}]: two launches gave different bits")
+        del again
+
+        # cuDNN's train-mode BatchNorm over the same tensor, forward and
+        # backward (scale and bias gradients included).
+        xl = x.detach().requires_grad_()
+        wl = scale.detach().requires_grad_()
+        bl = bias.detach().requires_grad_()
+
+        def library_fwd():
+            return F.batch_norm(xl, run_mean.clone(), run_var.clone(), wl, bl,
+                                training=True, momentum=0.1, eps=bn.EPSILON)
+
+        y_lib = library_fwd()
+
+        def library_bwd():
+            return torch.autograd.grad(y_lib, (xl, wl, bl), g,
+                                       retain_graph=True)
+
+        def library_stats():
+            return torch.batch_norm_stats(x, bn.EPSILON)
+
+        def library_sums():
+            return torch.batch_norm_backward_reduce(g, x, mean, rstd, scale,
+                                                    True, False, False)
+
+        elem = x.numel() * x.element_size()
+        acts = 1 + residual
+        rows = {
+            "bn_stats": (lambda: bn.stats(x), lambda: bn.moments_reference(x),
+                         library_stats, elem, stats_err, stats_used),
+            "bn_apply": (
+                lambda: bn.apply(x, moments, scale, bias, run_mean, run_var,
+                                 res, True),
+                lambda: bn.apply_reference(x, moments, scale, bias, res,
+                                           True),
+                library_fwd, (acts + 1) * elem, 0.0, 0.0),
+            "bn_grad_sums": (
+                lambda: bn.grad_sums(g, x, out, saved),
+                lambda: bn.grad_sums_reference(bn.masked_grad(g, out), x,
+                                               mean, rstd),
+                library_sums, 3 * elem, sums_err, sums_used),
+            "bn_dx": (
+                lambda: bn.dx(g, x, out, saved, scale, dbias, dscale, count,
+                              residual),
+                lambda: bn.dx_reference(bn.masked_grad(g, out), x, mean, var,
+                                        rstd, scale, dbias, dscale, count),
+                library_bwd, (4 + residual) * elem, 0.0, 0.0)}
+        for kernel, (fn, plain, library, nbytes, err, used) in rows.items():
+            b_ms, b_by = bound(nbytes, 0)
+            results[kernel].append({
+                "case": name, "shape": [n, c, h, w], "residual": residual,
+                "max_abs_err": err, "tol_used": used,
+                "bit_equal": kernel in ("bn_apply", "bn_dx"),
+                "ms": timer(fn, 20), "plain_ms": timer(plain, 5),
+                "library_ms": timer(library, 20) if library else None,
+                "bound_ms": b_ms, "bound_by": b_by})
+        del x, g, res, out, dx, dres, masked, xl, y_lib
+        torch.cuda.empty_cache()
 
 
 # (name, batch, heads, kv heads, seq, window, segmented): the training
@@ -2151,6 +2302,8 @@ def long_phase(torch):
 # resnet phase: bench.py's primary section (bench.py:610-680).
 RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES = 256, 224, 1000
 RESNET_SMOOTHING, RESNET_STEPS = 0.1, 10
+# ResNet-50's BatchNorms: the stem, 3 in each of 16 blocks, 4 projections.
+RESNET_NORMS = 53
 # The bf16 step-0 loss against the same parameters and batch through the
 # f32 model (TF32 off), relative. The loss at init is ~ln(1000) = 6.9;
 # bf16 activations through 53 convolutions and norms move the logits by
@@ -2283,6 +2436,7 @@ def resnet_phase(torch, root) -> dict:
     )
     from kubeflow_tpu_torch.models.checkpoint import CheckpointManager
     from kubeflow_tpu_torch.models.transformer import param_count
+    from kubeflow_tpu_torch.ops import _build
 
     tf32_default = {"cudnn": torch.backends.cudnn.allow_tf32,
                     "matmul": torch.backends.cuda.matmul.allow_tf32}
@@ -2310,12 +2464,18 @@ def resnet_phase(torch, root) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     losses, step_ms = [], []
+    _build.reset_launches()
     for _ in range(RESNET_STEPS):
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))   # syncs the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
+    launches = dict(_build.LAUNCHES)
+    for name in BN_KERNELS:   # each of ResNet-50's 53 BatchNorms, a step
+        if launches[name] != RESNET_NORMS * RESNET_STEPS:
+            _fail(f"resnet50: {launches[name]} {name} launches in "
+                  f"{RESNET_STEPS} steps, not {RESNET_NORMS} a step")
     step0_rel = abs(losses[0] - loss32) / abs(loss32)
     if not step0_rel <= RESNET_STEP0_RTOL:
         _fail(f"resnet50 bf16 step-0 loss {losses[0]} vs f32 {loss32}: "
@@ -2374,7 +2534,7 @@ def resnet_phase(torch, root) -> dict:
         "max_memory_allocated": peak,
         "eval": {"loss": eval_loss,
                  "accuracy": float(evaluation["accuracy"])},
-        "batch_stats_leaves_moved": moved,
+        "batch_stats_leaves_moved": moved, "launches": launches,
         "checkpoint": {"save_s": save_s, "restore_s": restore_s,
                        "leaves": n_leaves, "restored_equal": True},
         "traced_step": {"step_ms": traced_ms, **device_breakdown(prof)},
@@ -3118,7 +3278,9 @@ def parallel_lm(torch, mesh) -> dict:
 def parallel_resnet(torch, mesh) -> dict:
     """One ResNet-50 step on the mesh against the meshless step (loss,
     params and batch_stats), then PARALLEL_RESNET_STEPS timed steps of
-    each."""
+    each; the mesh steps' launches (the BatchNorm kernels once a norm a
+    step, on the group path: moments over 1 / (rows * n), then the
+    all-reduces)."""
     from kubeflow_tpu_torch.models import (
         create_train_state,
         gather_state,
@@ -3127,6 +3289,7 @@ def parallel_resnet(torch, mesh) -> dict:
         resnet50,
     )
     from kubeflow_tpu_torch.models.optim import flatten
+    from kubeflow_tpu_torch.ops import _build
 
     shape = (RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3)
     model = resnet50(num_classes=RESNET_CLASSES)
@@ -3141,8 +3304,14 @@ def parallel_resnet(torch, mesh) -> dict:
         states[name] = create_train_state(model, seed=0, input_shape=shape,
                                           tx=make_optimizer(), mesh=m)
         steps[name] = make_train_step(m, smoothing=RESNET_SMOOTHING)
+        _build.reset_launches()
         states[name], metrics = steps[name](states[name], batch)
         out[name] = float(metrics["loss"])
+    launches = dict(_build.LAUNCHES)   # the mesh step's
+    for name in BN_KERNELS:
+        if launches[name] != RESNET_NORMS:
+            _fail(f"mesh ResNet-50 step: {launches[name]} {name} launches, "
+                  f"not one for each of its {RESNET_NORMS} norms")
     loss_err = abs(out["mesh"] - out["meshless"]) / abs(out["meshless"])
     if not loss_err <= PARALLEL_RTOL:
         _fail(f"mesh ResNet-50 step-0 loss {out['mesh']} vs meshless "
@@ -3169,7 +3338,8 @@ def parallel_resnet(torch, mesh) -> dict:
             "bit_equal": (out["mesh"] == out["meshless"]
                           and errs["params"][1] and errs["batch_stats"][1]),
             "step_ms": ms,
-            "step_ms_median": {n: statistics.median(v) for n, v in ms.items()}}
+            "step_ms_median": {n: statistics.median(v) for n, v in ms.items()},
+            "launches": launches}
 
 
 def ring_hops(torch, timer) -> dict:
@@ -3502,8 +3672,7 @@ def mesh_ckpt_phase(torch, mesh, root) -> dict:
     torch.cuda.empty_cache()
     moe = mesh_moe(torch, mesh)
     launches = {name: loop["launches"].get(name, 0)
-                + moe["launches"].get(name, 0)
-                for name in SERVE_KERNELS + TRAIN_KERNELS + STEP_KERNELS}
+                + moe["launches"].get(name, 0) for name in ALL_KERNELS}
     return {"phase": "mesh_ckpt", "world_size": mesh.size(mesh.axis_names),
             "loop": loop, "restores": restores, "moe": moe,
             "launches": launches}
@@ -3641,8 +3810,7 @@ def pipeline_phase(torch, mesh) -> dict:
                       f"{step0.get(kernel, 0)} times in step 0 and "
                       f"{launches.get(kernel, 0)} in {PIPELINE_STEPS} "
                       f"steps, not {n} a step")
-        for kernel in dict.fromkeys(SERVE_KERNELS + TRAIN_KERNELS
-                                    + STEP_KERNELS):
+        for kernel in ALL_KERNELS:
             totals[kernel] = totals.get(kernel, 0) + launches.get(kernel, 0)
         runs[name] = {"losses": losses, "step_ms": ms,
                       "step_ms_after_first": statistics.median(ms[1:]),
@@ -3709,7 +3877,7 @@ def parallel_phase(torch, timer, root) -> tuple:
     hooks = hooks_phase(torch, mesh, resnet, root)
     dist.destroy_process_group()
     launches = {name: lm["launches"].get(name, 0)
-                for name in SERVE_KERNELS + TRAIN_KERNELS + STEP_KERNELS}
+                + resnet["launches"].get(name, 0) for name in ALL_KERNELS}
     return ({"phase": "parallel", "world": world, "rtol": PARALLEL_RTOL,
              "lm": lm, "resnet": resnet, "ring": ring,
              "launches": launches}, mesh_ckpt, pipeline, hooks)
@@ -4085,7 +4253,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="resnet_smoke_", dir=_build.BUILD_DIR)
     try:
-        print(json.dumps(resnet_phase(torch, root)), flush=True)
+        resnet = resnet_phase(torch, root)
+        print(json.dumps(resnet), flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.synchronize()
@@ -4111,10 +4280,12 @@ def main() -> int:
     main_case = {"gemv": "tied_head", "qkv_rope": "flagship",
                  "decode_attention": "serve_shape",
                  "flash_attention": "causal", "flash_dq": "train_causal",
-                 "flash_dkv": "train_causal", "split3": "lm_head_grad"}
+                 "flash_dkv": "train_causal", "split3": "lm_head_grad",
+                 **{name: "stem" for name in BN_KERNELS}}
     # Launches from the phase that runs each kernel: the serve run for
     # the serving kernels, the train run for the backward kernels and
-    # the split (``replaces`` None: it ports no TPU kernel). The
+    # the split, the resnet phase's steps for the BatchNorm kernels
+    # (``replaces`` None: these port no TPU kernel). The
     # flash forward runs on both: ``launches`` is the serve run's,
     # ``train_launches`` the train run's; ``int8_launches`` are the int8
     # phase's engine run's (int8 weights: every gemv and qkv_rope launch
@@ -4132,7 +4303,8 @@ def main() -> int:
     # runs', ``bench_launches`` the bench's, counted in its process.
     launches = {**serve["launches"], "flash_dq": train["launches"]["flash_dq"],
                 "flash_dkv": train["launches"]["flash_dkv"],
-                "split3": train["launches"]["split3"]}
+                "split3": train["launches"]["split3"],
+                **{name: resnet["launches"][name] for name in BN_KERNELS}}
     meta = {
         "flash_attention": ("kubeflow_tpu_torch/csrc/flash_fwd.cu",
                             "kubeflow_tpu/ops/attention.py:158"),
@@ -4147,6 +4319,8 @@ def main() -> int:
         "decode_attention": ("kubeflow_tpu_torch/csrc/decode_attention.cu",
                              "kubeflow_tpu/ops/decode_attention.py:65"),
         "split3": ("kubeflow_tpu_torch/csrc/split3.cu", None),
+        **{name: ("kubeflow_tpu_torch/csrc/batch_norm.cu", None)
+           for name in BN_KERNELS},
     }
     summary = []
     for name, (source, replaces) in meta.items():

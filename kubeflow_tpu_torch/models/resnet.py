@@ -30,9 +30,10 @@ keeps it:
   ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` and rounds to the
   compute dtype; its running averages use momentum 0.9 and the biased
   variance. ``nn.BatchNorm2d`` updates with the unbiased variance, so
-  the port has its own (:class:`_BatchNormTrain`, whose backward is the
-  closed form and keeps only the bf16 input), and the train-mode call
-  returns the new ``batch_stats`` instead of writing them, as
+  the port has its own (``ops/batch_norm.py``: the closed-form backward,
+  keeping only the bf16 input; kernels on the card), with the ReLU and
+  the residual sum after it fused in, and the train-mode call returns
+  the new ``batch_stats`` instead of writing them, as
   ``mutable=["batch_stats"]`` does.
 - On a mesh the batch is split over (dp, fsdp), and a sharded flax
   BatchNorm under ``jit`` takes the WHOLE batch's moments. The train
@@ -58,11 +59,9 @@ import torch
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch._device import resolve_device
-from kubeflow_tpu_torch.parallel.collectives import all_reduce
+from kubeflow_tpu_torch.ops.batch_norm import EPSILON, batch_norm_train
 from kubeflow_tpu_torch.parallel.fsdp import gathered_call
 
-MOMENTUM = 0.9
-EPSILON = 1e-5
 # The head's truncated normal: variance_scaling(1, "fan_in",
 # "truncated_normal") divides the std by the std of a unit normal
 # truncated to [-2, 2].
@@ -104,74 +103,23 @@ def max_pool(x):
     return F.max_pool2d(x, 3, stride=2, padding=padding)
 
 
-class _BatchNormTrain(torch.autograd.Function):
-    """flax BatchNorm in train mode over (N, C, H, W): f32 statistics
-    with the fast variance, output in x's dtype. Returns (y, mean, var);
-    only y carries a gradient. Saves x (its own dtype), the per-channel
-    mean and 1/std, and the scale; the backward is the closed form of
-    the same function, ``scale / std * (g - mean(g) - xhat * mean(g *
-    xhat))``, without the last term on a channel whose variance was
-    clipped to 0 (the clip passes no gradient there).
-
-    With a process ``group`` (whose ranks hold equal batches) the
-    moments are the group's: each rank's mean and mean square times
-    1/n, all-reduced (at n = 1 exactly the groupless values), and the
-    backward's mean(g) and mean(g * xhat) come from the all-reduced sums.
-    The scale and bias gradients stay this rank's own sums, which the
-    train step reduces with every other gradient."""
-
-    @staticmethod
-    def forward(ctx, x, scale, bias, group):
-        xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        mean2 = (xf * xf).mean(dim=(0, 2, 3))
-        ctx.group, ctx.n = group, 1
-        if group is not None:
-            ctx.n = group.size()
-            moments = torch.stack([mean, mean2]) * (1.0 / ctx.n)
-            mean, mean2 = all_reduce(moments, group)
-        raw = mean2 - mean * mean
-        var = torch.clamp_min(raw, 0.0)
-        rstd = torch.rsqrt(var + EPSILON)
-        mul = rstd * scale
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + bias[:, None,
-                                                                   None]
-        ctx.save_for_backward(x, mean, rstd, scale, raw > 0)
-        ctx.mark_non_differentiable(mean, var)
-        return y.to(x.dtype), mean, var
-
-    @staticmethod
-    def backward(ctx, g, _g_mean, _g_var):
-        x, mean, rstd, scale, active = ctx.saved_tensors
-        gf = g.float()
-        xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
-        count = x.numel() // x.shape[1] * ctx.n
-        dbias = gf.sum(dim=(0, 2, 3))
-        dscale = (gf * xhat).sum(dim=(0, 2, 3))
-        sum_g, sum_gx = dbias, dscale
-        if ctx.group is not None:
-            sum_g, sum_gx = all_reduce(torch.stack([dbias, dscale]),
-                                       ctx.group)
-        centre = sum_gx * active / count
-        dx = (gf - (sum_g / count)[:, None, None]
-              - xhat * centre[:, None, None]) * (scale * rstd)[:, None, None]
-        return dx.to(x.dtype), dscale, dbias, None
-
-
-def batch_norm(p, stats, x, train: bool, group=None):
-    """One BatchNorm: ``p`` holds ``scale``/``bias``, ``stats``
-    ``mean``/``var``; ``group`` takes the moments over a split batch
-    (:class:`_BatchNormTrain`). Returns (y, new stats or None)."""
+def batch_norm(p, stats, x, train: bool, group=None, relu: bool = False,
+               residual=None):
+    """One BatchNorm and what follows it: ``relu(bn(x) + residual)``,
+    ``relu(bn(x))`` or ``bn(x)``. ``p`` holds ``scale``/``bias``,
+    ``stats`` ``mean``/``var``; ``group`` takes the moments over a split
+    batch. Train mode runs ``ops.batch_norm.batch_norm_train`` (the
+    kernels on the card). Returns (y, new stats or None)."""
     if not train:
         mul = torch.rsqrt(stats["var"] + EPSILON) * p["scale"]
         y = ((x.float() - stats["mean"][:, None, None]) * mul[:, None, None]
-             + p["bias"][:, None, None])
-        return y.to(x.dtype), None
-    y, mean, var = _BatchNormTrain.apply(x, p["scale"], p["bias"], group)
-    with torch.no_grad():
-        new = {"mean": MOMENTUM * stats["mean"] + (1 - MOMENTUM) * mean,
-               "var": MOMENTUM * stats["var"] + (1 - MOMENTUM) * var}
-    return y, new
+             + p["bias"][:, None, None]).to(x.dtype)
+        if residual is not None:
+            y = residual + y
+        return (F.relu(y) if relu else y), None
+    y, mean, var = batch_norm_train(x, p["scale"], p["bias"], stats["mean"],
+                                    stats["var"], group, relu, residual)
+    return y, {"mean": mean, "var": var}
 
 
 class BottleneckBlock:
@@ -196,27 +144,31 @@ class BasicBlock:
 def _block(convs, stride, p, norm, x, dtype):
     """One residual block, as both reference blocks run it: conv ->
     norm -> relu for each conv but the last, whose norm (zero-initialised
-    scale) feeds the residual sum; ``conv_proj``/``norm_proj`` (at the
-    block's stride) on the shortcut where the shape changes.
-    ``norm(name, y)`` is the block's BatchNorm."""
-    residual, y = x, x
-    for j, (_, _, _, conv_stride) in enumerate(convs):
+    scale) feeds the residual sum and the relu after it;
+    ``conv_proj``/``norm_proj`` (at the block's stride, no relu) on the
+    shortcut where the shape changes. ``norm(name, y, relu, residual)``
+    is the block's BatchNorm with what follows it."""
+    y = x
+    for j, (_, _, _, conv_stride) in enumerate(convs[:-1]):
         y = norm(f"BatchNorm_{j}", conv(y, p[f"Conv_{j}"]["kernel"],
-                                        conv_stride, dtype))
-        if j < len(convs) - 1:
-            y = F.relu(y)
-    if residual.shape != y.shape:
-        residual = norm("norm_proj", conv(residual, p["conv_proj"]["kernel"],
+                                        conv_stride, dtype), relu=True)
+    residual = x
+    if "conv_proj" in p:
+        residual = norm("norm_proj", conv(x, p["conv_proj"]["kernel"],
                                           stride, dtype))
-    return F.relu(residual + y)
+    last = len(convs) - 1
+    return norm(f"BatchNorm_{last}",
+                conv(y, p[f"Conv_{last}"]["kernel"], convs[-1][3], dtype),
+                relu=True, residual=residual)
 
 
 def _norms(p, stats, new, train, group=None):
     """The BatchNorms of one scope: ``norm(name, y)`` normalises with
     ``p[name]`` and ``stats[name]`` and keeps the new statistics in
     ``new`` (train mode)."""
-    def norm(name, y):
-        y, updated = batch_norm(p[name], stats[name], y, train, group)
+    def norm(name, y, relu=False, residual=None):
+        y, updated = batch_norm(p[name], stats[name], y, train, group, relu,
+                                residual)
         if updated is not None:
             new[name] = updated
         return y
@@ -261,8 +213,9 @@ class ResNet:
 
         def stem(w, x):
             x = _norms(w, batch_stats, new_stats, train, group)(
-                "norm_init", conv(x, w["conv_init"]["kernel"], 2, dtype))
-            return max_pool(F.relu(x))
+                "norm_init", conv(x, w["conv_init"]["kernel"], 2, dtype),
+                relu=True)
+            return max_pool(x)
 
         def block(w, x, name, convs, stride):
             norm = _norms(w, batch_stats[name], new_stats.setdefault(name, {}),

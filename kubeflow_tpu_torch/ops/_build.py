@@ -41,7 +41,8 @@ _LIB: ctypes.CDLL | None = None
 # the training run to show each path went through its kernels.
 LAUNCHES = {"flash_attention": 0, "gemv": 0, "qkv_rope": 0,
             "decode_attention": 0, "flash_dq": 0, "flash_dkv": 0,
-            "split3": 0}
+            "split3": 0, "bn_stats": 0, "bn_apply": 0, "bn_grad_sums": 0,
+            "bn_dx": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -59,6 +60,12 @@ _SIGNATURES = {
     "kft_flash_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _I, _I, _F, _P],
     "kft_split3": [_P, _P, _L, _L, _P],
+    "kft_bn_row_blocks": [_L, _I, _I],
+    "kft_bn_stats": [_P, _P, _P, _L, _I, _I, _F, _P],
+    "kft_bn_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I,
+                     _I, _F, _F, _F, _P],
+    "kft_bn_grad_sums": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
+    "kft_bn_dx": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _F, _P],
 }
 
 

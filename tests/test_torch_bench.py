@@ -94,7 +94,8 @@ def test_mode_prints_one_valid_record(capsys, mini, mode, metric, section):
     assert 0 < record["mfu"] < 1
     assert set(record["kernel_launches"]) == {
         "flash_attention", "flash_dq", "flash_dkv", "gemv", "qkv_rope",
-        "decode_attention", "split3"}
+        "decode_attention", "split3", "bn_stats", "bn_apply", "bn_grad_sums",
+        "bn_dx"}
     if mode == "resnet":
         assert record["vs_measured_ref"] > 0
         assert record["unit"] == "images/sec/chip"

@@ -1309,3 +1309,202 @@ def test_lm_cell_step_counts_its_tensor_core_products(card):
     after = {**TENSOR_CORE_PRODUCTS, "split3": _build.LAUNCHES["split3"]}
     moved = {k: after[k] - before[k] for k in before}
     assert moved == {"dense_mm": 6 * cfg.layers, "head_mm": 1, "split3": 1}
+
+
+# ----------------------------------------------- BatchNorm with its ReLU
+
+# (N, C, H, W): ResNet-50's stem norm and a stage-4 norm at batch 256 and
+# 224x224, and a ragged one (C = 20: 16-byte loads for f32, 8-byte for
+# bf16; 3 * 37 * 29 rows, no multiple of a block's rows).
+BN_SHAPES = {"stem": (256, 64, 112, 112), "stage4": (256, 2048, 7, 7),
+             "ragged": (3, 20, 37, 29)}
+# Summation order only: the kernels sum each thread's rows in order, a
+# block's rows in a tree and the row blocks in order; the twin is
+# PyTorch's reduction. A channel's mean is held to BN_SUM_RTOL of its RMS
+# and its mean square to BN_SUM_RTOL of itself; a backward sum to
+# BN_SUM_RTOL of the sum of its terms' magnitudes (above the worst case
+# of ~140 f32 roundings deep that the kernels' order allows: 8.4e-6).
+BN_SUM_RTOL = 1e-5
+
+
+def _bn_inputs(gen, shape, dtype, epilogue, constant=False):
+    """x, scale, bias, running mean and var, residual and an output
+    gradient, channels-last; with ``constant`` channel 0 of x is one
+    value (its variance is 0 or clips to 0)."""
+    n, c, h, w = shape
+
+    def act(std=1.0, shift=0.0):
+        t = torch.randn((n, h, w, c), generator=gen, device="cuda")
+        return (t * std + shift).to(dtype).permute(0, 3, 1, 2)
+
+    x = act(2.0, 0.5)
+    if constant:
+        x[:, 0] = 1.5
+    vec = [torch.randn(c, generator=gen, device="cuda") for _ in range(3)]
+    run_var = torch.rand(c, generator=gen, device="cuda") + 0.5
+    residual = act() if epilogue == "residual" else None
+    return x, vec[0], vec[1], vec[2], run_var, residual, act()
+
+
+@pytest.mark.parametrize("epilogue", ["none", "relu", "residual"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", sorted(BN_SHAPES))
+def test_batch_norm_kernels_match_their_twins(card, shape, dtype, epilogue):
+    """Each pass against the twin on the card: the statistics within the
+    summation-order tolerance, the apply bit for bit given the kernel's
+    statistics (mean, var, rstd, the running averages, the output), the
+    backward's sums within the tolerance and dx and the residual's
+    gradient bit for bit given the kernel's sums; two launches of each
+    pass give the same bits. The ragged shape holds a constant channel,
+    whose variance is 0 or clips to 0."""
+    from kubeflow_tpu_torch.ops import batch_norm as bn
+
+    x, scale, bias, run_mean, run_var, residual, g = _bn_inputs(
+        card, BN_SHAPES[shape], dtype, epilogue, constant=shape == "ragged")
+    relu = epilogue != "none"
+    moments = bn.stats(x)
+    want = bn.moments_reference(x)
+    rms = want[1].sqrt()
+    assert ((moments[0] - want[0]).abs() <= BN_SUM_RTOL * rms).all()
+    assert ((moments[1] - want[1]).abs() <= BN_SUM_RTOL * want[1]).all()
+
+    out, saved, new_mean, new_var = bn.apply(x, moments, scale, bias,
+                                             run_mean, run_var, residual,
+                                             relu)
+    mean, var, rstd = saved
+    assert torch.equal(mean, moments[0])
+    assert torch.equal(var, torch.clamp_min(moments[1] - mean * mean, 0.0))
+    # 1 / sqrt(var + eps), each step rounded once in f32 (PyTorch's rsqrt
+    # on the card is rsqrtf, within 2 ulps).
+    assert torch.equal(rstd, 1.0 / torch.sqrt(var + bn.EPSILON))
+    assert torch.equal(new_mean, bn.MOMENTUM * run_mean
+                       + (1 - bn.MOMENTUM) * mean)
+    assert torch.equal(new_var, bn.MOMENTUM * run_var
+                       + (1 - bn.MOMENTUM) * var)
+    assert torch.equal(out, bn.normalize_reference(x, mean, rstd * scale,
+                                                   bias, residual, relu))
+
+    masked = bn.masked_grad(g, out) if relu else g
+    dbias, dscale = bn.grad_sums(g, x, out if relu else None, saved)
+    want_b, want_s = bn.grad_sums_reference(masked, x, mean, rstd)
+    xhat = (x.float() - mean[:, None, None]) * rstd[:, None, None]
+    mag_b = masked.float().abs().sum(dim=(0, 2, 3))
+    mag_s = (masked.float() * xhat).abs().sum(dim=(0, 2, 3))
+    assert ((dbias - want_b).abs() <= BN_SUM_RTOL * mag_b).all()
+    assert ((dscale - want_s).abs() <= BN_SUM_RTOL * mag_s).all()
+
+    count = x.numel() // x.shape[1]
+    dx, dres = bn.dx(g, x, out if relu else None, saved, scale, dbias,
+                     dscale, count, epilogue == "residual")
+    assert torch.equal(dx, bn.dx_reference(masked, x, mean, var, rstd,
+                                           scale, dbias, dscale, count))
+    if epilogue == "residual":
+        assert torch.equal(dres, masked)
+    again = (bn.stats(x),
+             bn.apply(x, moments, scale, bias, run_mean, run_var, residual,
+                      relu)[0],
+             *bn.grad_sums(g, x, out if relu else None, saved),
+             bn.dx(g, x, out if relu else None, saved, scale, dbias, dscale,
+                   count, epilogue == "residual")[0])
+    for a, b in zip(again, (moments, out, dbias, dscale, dx)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("epilogue", ["none", "relu", "residual"])
+def test_batch_norm_train_on_the_card_matches_the_twin_end_to_end(
+        card, epilogue):
+    """``batch_norm_train`` through autograd on the card (the kernels)
+    against the same call on the CPU (the twins) at the ragged shape in
+    f32: the output, the running averages and every gradient within the
+    f32 summation-order tolerance; one launch of each kernel."""
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.ops.batch_norm import batch_norm_train
+
+    x, scale, bias, run_mean, run_var, residual, g = _bn_inputs(
+        card, BN_SHAPES["ragged"], torch.float32, epilogue)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_()
+                  for t in (x, scale, bias, residual) if t is not None]
+        res = leaves[3] if residual is not None else None
+        _build.reset_launches()
+        out, new_mean, new_var = batch_norm_train(
+            leaves[0], leaves[1], leaves[2], run_mean.to(dev),
+            run_var.to(dev), relu=epilogue != "none", residual=res)
+        grads = torch.autograd.grad(out, leaves, g.to(dev))
+        runs[dev] = [t.detach().cpu() for t in (out, new_mean, new_var,
+                                                *grads)]
+        if dev == "cuda":
+            launches = {k: v for k, v in _build.LAUNCHES.items()
+                        if k.startswith("bn_")}
+            assert launches == {"bn_stats": 1, "bn_apply": 1,
+                                "bn_grad_sums": 1, "bn_dx": 1}
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        _assert_close(got.reshape(-1, got.shape[-1]),
+                      want.reshape(-1, want.shape[-1]), TOL_F32)
+
+
+@pytest.mark.parametrize("epilogue", ["none", "relu", "residual"])
+def test_batch_norm_train_with_a_group_of_one_equals_the_groupless_call(
+        card_mesh, epilogue):
+    """``batch_norm_train`` on the card with the world-1 mesh's (dp, fsdp)
+    group (the moments taken over 1 / (rows * 1), the NCCL all-reduces
+    of the moments and the backward's sums between the passes) against
+    the call without a group, in bf16 at the ragged shape: the output,
+    the running averages and every gradient bit for bit."""
+    from kubeflow_tpu_torch.ops.batch_norm import batch_norm_train
+
+    x, scale, bias, run_mean, run_var, residual, g = _bn_inputs(
+        torch.Generator(device="cuda").manual_seed(6), BN_SHAPES["ragged"],
+        torch.bfloat16, epilogue)
+    runs = {}
+    for name, group in (("none", None),
+                        ("group", card_mesh.group(("dp", "fsdp")))):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, scale, bias, residual) if t is not None]
+        res = leaves[3] if residual is not None else None
+        out, new_mean, new_var = batch_norm_train(
+            leaves[0], leaves[1], leaves[2], run_mean, run_var, group,
+            relu=epilogue != "none", residual=res)
+        runs[name] = [out, new_mean, new_var,
+                      *torch.autograd.grad(out, leaves, g)]
+    for a, b in zip(runs["group"], runs["none"]):
+        assert torch.equal(a, b)
+
+
+def test_batch_norm_kernels_raise_on_what_they_do_not_take(card):
+    """An f16 activation, f64 statistics: the wrapper raises on the card
+    (no fallback to the twin)."""
+    from kubeflow_tpu_torch.ops.batch_norm import batch_norm_train
+
+    x, scale, bias, run_mean, run_var, _, _ = _bn_inputs(
+        card, BN_SHAPES["ragged"], torch.float32, "none")
+    with pytest.raises(ValueError):
+        batch_norm_train(x.half(), scale, bias, run_mean, run_var)
+    with pytest.raises(ValueError):
+        batch_norm_train(x, scale, bias, run_mean.double(), run_var)
+
+
+def test_resnet50_step_launches_each_batch_norm_kernel_once_a_norm(card):
+    """One ResNet-50 train step (64x64 images, batch 8) runs each of the
+    four BatchNorm kernels once for each of its 53 norms."""
+    from kubeflow_tpu_torch.models import (
+        create_train_state,
+        make_train_step,
+        resnet50,
+    )
+    from kubeflow_tpu_torch.ops import _build
+
+    model = resnet50(num_classes=10)
+    state = create_train_state(model, seed=0, input_shape=(8, 64, 64, 3))
+    batch = {"image": torch.randn((8, 64, 64, 3), generator=card,
+                                  device="cuda").bfloat16(),
+             "label": torch.randint(0, 10, (8,), generator=card,
+                                    device="cuda")}
+    _build.reset_launches()
+    _, metrics = make_train_step()(state, batch)
+    assert float(metrics["loss"]) == float(metrics["loss"])
+    assert {k: v for k, v in _build.LAUNCHES.items() if k.startswith("bn_")
+            } == {"bn_stats": 53, "bn_apply": 53, "bn_grad_sums": 53,
+                  "bn_dx": 53}

@@ -314,6 +314,10 @@ def pair_world(tmp_path_factory):
         (f"resnet:{name}", dict(spec=spec, variables=variables,
                                 images=images, labels=labels, meshless=True))
         for name, spec in (("dp2", dict(dp=2)), ("fsdp2", dict(dp=1, fsdp=2)))]
+    tasks += [(f"batch_norm:{name}", dict(spec=spec, **inputs))
+              for name, spec in (("dp2", dict(dp=2)),
+                                 ("fsdp2", dict(dp=1, fsdp=2)))
+              for inputs in [_bn_world_inputs()]]
     world = torch_world.World(2, tasks, tmp_path_factory.mktemp("pair"))
     want = _jax_resnet(jstate, images, labels)
     return world.wait(), want
@@ -507,6 +511,57 @@ def test_resnet_fsdp_holds_one_block_whole_at_a_time(lm_world, pair_world,
         assert 0 < out["whole_peak"] <= max(pieces.values()), (
             out["whole_peak"], pieces)
         assert out["gathers"] > total
+
+
+def _bn_world_inputs(seed=4):
+    """A whole batch (8, 20, 5, 3) f32 for the BatchNorm group case:
+    x, the output's gradient, scale, bias and a residual (the block's
+    last norm: residual sum and ReLU)."""
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    return dict(x=f32(8, 20, 5, 3, scale=2.0) + 0.5, g=f32(8, 20, 5, 3),
+                scale=f32(20), bias=f32(20), residual=f32(8, 20, 5, 3))
+
+
+@pytest.mark.parametrize("name", ["dp2", "fsdp2"])
+def test_batch_norm_group_moments_equal_the_whole_batch(pair_world, name):
+    """A BatchNorm whose moments and backward sums are all-reduced over
+    two gloo ranks gives each rank its rows of the one-process BatchNorm
+    of the whole batch: the output, the running averages, dx and the
+    residual's gradient, and the scale and bias gradients summed over
+    the ranks, to f32 summation order (1e-5 of each tensor's largest
+    element)."""
+    from kubeflow_tpu_torch.ops.batch_norm import batch_norm_train
+
+    results, _ = pair_world
+    inputs = _bn_world_inputs()
+    leaves = [torch.from_numpy(inputs[k]).requires_grad_()
+              for k in ("x", "scale", "bias", "residual")]
+    c = inputs["x"].shape[1]
+    out, mean, var = batch_norm_train(leaves[0], leaves[1], leaves[2],
+                                      torch.zeros(c), torch.ones(c),
+                                      relu=True, residual=leaves[3])
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(inputs["g"]))
+    want = {"out": out, "mean": mean, "var": var,
+            **dict(zip(("dx", "dscale", "dbias", "dres"), grads))}
+    want = {k: v.detach().numpy() for k, v in want.items()}
+    ranks = torch_world.outputs(results, f"batch_norm:{name}")
+
+    def close(got, ref):
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max())
+
+    for key in ("out", "dx", "dres"):
+        close(np.concatenate([r[key] for r in sorted(
+            ranks, key=lambda r: r["rows"])]), want[key])
+    for key in ("mean", "var"):
+        for r in ranks:
+            close(r[key], want[key])
+    for key in ("dscale", "dbias"):
+        close(sum(r[key] for r in ranks), want[key])
 
 
 def test_initialize_from_env_forms_the_world(pair_world):

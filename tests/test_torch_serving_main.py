@@ -256,7 +256,8 @@ def test_main_serves_a_pod_and_exits_on_sigterm():
                     if "kernel_launches" in rec]
         assert launches == [{name: 0 for name in (
             "flash_attention", "gemv", "qkv_rope", "decode_attention",
-            "flash_dq", "flash_dkv", "split3")}]
+            "flash_dq", "flash_dkv", "split3", "bn_stats", "bn_apply",
+            "bn_grad_sums", "bn_dx")}]
     finally:
         if proc.poll() is None:
             proc.kill()

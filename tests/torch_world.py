@@ -415,6 +415,34 @@ def case_resnet(spec, variables, images, labels, meshless=False):
     return result
 
 
+def case_batch_norm(spec, x, g, scale, bias, residual=None, relu=True):
+    """One BatchNorm (the plain twin: CPU tensors) over this rank's rows
+    of the whole batch ``x``, its moments and backward sums taken over
+    the (dp, fsdp) group: the output, the running averages and every
+    gradient (this rank's own scale and bias sums)."""
+    import torch
+
+    from kubeflow_tpu_torch.ops.batch_norm import batch_norm_train
+
+    mesh = _mesh(spec)
+    rows = mesh.slice(("dp", "fsdp"), x.shape[0])
+    c = x.shape[1]
+    inputs = [torch.from_numpy(a[rows] if a.ndim == 4 else a)
+              .requires_grad_() for a in (x, scale, bias)]
+    res = None
+    if residual is not None:
+        res = torch.from_numpy(residual[rows]).requires_grad_()
+        inputs.append(res)
+    out, mean, var = batch_norm_train(
+        inputs[0], inputs[1], inputs[2], torch.zeros(c), torch.ones(c),
+        mesh.group(("dp", "fsdp")), relu, res)
+    grads = torch.autograd.grad(out, inputs, torch.from_numpy(g[rows]))
+    return {"rows": (rows.start, rows.stop), "out": _np(out),
+            "mean": _np(mean), "var": _np(var),
+            **{k: _np(t) for k, t in zip(("dx", "dscale", "dbias", "dres"),
+                                         grads)}}
+
+
 # ------------------------------------------------- checkpoints on a mesh
 
 
